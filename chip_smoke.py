@@ -1,0 +1,470 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port on one card and hold its kernels to their twins.
+
+Run from the repository root on a machine with an NVIDIA GPU and the CUDA
+toolkit (``nvcc``):
+
+    python3 chip_smoke.py                 # every phase, about two minutes
+    python3 chip_smoke.py --kernels-only  # build + kernel checks only
+
+Phases (each failure raises; nothing falls back to the CPU):
+
+1. device line: ``nvidia-smi`` name and power limit, torch and CUDA versions;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+3. every kernel against its plain PyTorch twin on the card, at the main
+   path's shape (256 pairs x expand 8 = 2048 states, N = 32, Le = 3), on an
+   edgeless batch (Le = 0) and at N = 64: ``torch.equal``, kernel and twin
+   times (CUDA events, and device time from ``torch.profiler``), the
+   memory/compute bound;
+4. the main path: 256 AIDS-like pairs through ``GedEngine("cuda")`` and
+   ``GedEngine("torch")`` (``compute`` and ``verify(tau=4)``, the second
+   escalation rung's pool/expand/max_iters), outcomes compared field by
+   field, launch counts read around the first ``"cuda"`` run, the wall
+   times of ``REPEATS`` runs of each backend (median, min, max), 16 pairs
+   re-run on the CPU, launches per iteration from ``torch.profiler``;
+5. a ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
+   as the last line ``{"ok": true, "device": {...}}``.
+
+It imports nothing of JAX and nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+SEED = 0
+PAIRS, EXPAND, POOL, MAX_ITERS, TAU = 256, 8, 1024, 512, 4.0
+CPU_PAIRS = 16
+REPEATS = 3          # timed runs of each backend on the main path
+# NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth and f32 (non-tensor) rate
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+KERNELS = {
+    "reduced_top2": "src/repro/kernels/reduced_top2.py:38",
+    "bma_cost_matrix": "src/repro/kernels/bma_cost_matrix.py:69",
+    "lsa_children": "src/repro/kernels/lsa_children.py:102",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ------------------------------------------------------------------ data
+
+def aids_pairs(rng, count, n_lo, n_hi):
+    """AIDS-like pairs (62 vertex labels, 3 edge labels), each graph with a
+    ``perturb(., k)`` partner, k in [1, 6]; returns (pairs, ks)."""
+    from repro_torch.data.graphs import aids_like_graph, perturb
+    pairs, ks = [], []
+    for _ in range(count):
+        g = aids_like_graph(rng, int(rng.integers(n_lo, n_hi + 1)),
+                            n_vlabels=62, n_elabels=3)
+        k = int(rng.integers(1, 7))
+        pairs.append((g, perturb(rng, g, k, n_vlabels=62, n_elabels=3)))
+        ks.append(k)
+    return pairs, ks
+
+
+def edgeless_pairs(rng, count, n_lo, n_hi):
+    """Pairs of edgeless graphs (``n_elabels == 0`` once packed) that differ
+    in up to three vertex labels."""
+    from repro_torch.data.graphs import random_graph
+    out = []
+    for _ in range(count):
+        g = random_graph(rng, int(rng.integers(n_lo, n_hi + 1)), density=0.0,
+                         n_vlabels=8, n_elabels=1)
+        h = g.copy()
+        h.vlabels[:3] = rng.integers(0, 8, size=3)
+        out.append((g, h))
+    return out
+
+
+def engine_states(pairs, slots, rng, device):
+    """Random search states (``EXPAND`` per pair) on packed pairs, built
+    with the engine's own ``make_pair_consts`` and ``state_masks``."""
+    import torch
+    from repro_torch.core.engine import bounds as eb
+    from repro_torch.core.engine.tensor_graphs import pack_pairs, to_device
+    packed = pack_pairs(pairs, slots=slots)
+    dp = to_device(packed, device)
+    pc = eb.make_pair_consts(*dp).unsqueeze(1)
+    img = np.full((len(pairs), EXPAND, slots), -1, np.int32)
+    level = np.zeros((len(pairs), EXPAND), np.int32)
+    for p, n in enumerate(packed.n):
+        for e in range(EXPAND):
+            level[p, e] = rng.integers(0, n)
+            img[p, e, : level[p, e]] = rng.permutation(n)[: level[p, e]]
+    img_t = torch.as_tensor(img, device=device)
+    level_t = torch.as_tensor(level, device=device)
+    g_cost = torch.as_tensor(rng.integers(0, 9, level.shape) * 0.5,
+                             dtype=torch.float32, device=device)
+    return pc, eb.state_masks(pc, img_t, level_t), level_t, g_cost
+
+
+# --------------------------------------------------------------- timing
+
+def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
+    """Median over ``groups`` of the mean time of ``reps`` back-to-back
+    calls, from CUDA events."""
+    import torch
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(groups):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def device_ms(fn, reps: int = 20):
+    """Device time per call: the summed durations of every CUDA kernel
+    ``fn`` launches, from ``torch.profiler`` over ``reps`` calls (host
+    gaps between launches excluded).  None if the profiler saw no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return None
+    return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs)
+
+
+def check_kernel(name, kernel, twin, args, out_like, ops, library=None,
+                 timed=True):
+    """Hold one kernel to its twin; returns a row of measurements."""
+    import torch
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    want = twin(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for g, w in zip(got, want):
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5].tolist()
+            raise AssertionError(f"{name}: kernel differs from its twin at "
+                                 f"{bad}")
+        err = max(err, float((g.double() - w.double()).abs().max())
+                  if g.numel() else 0.0)
+    row = {"equal": True, "max_abs_err": err,
+           "out_shape": [list(g.shape) for g in got]}
+    if timed:
+        moved = nbytes(*args) + nbytes(*out_like)
+        t_bytes = moved / PEAK_BYTES_PER_S * 1e3
+        t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+        for key, fn in (("kernel", lambda: kernel(*args)),
+                        ("plain", lambda: twin(*args)),
+                        ("library", library)):
+            if fn is None:
+                row[key + "_ms"] = row[key + "_device_ms"] = None
+                continue
+            reps = 5 if key == "plain" else 20
+            # "_ms": CUDA events around back-to-back calls (host launch
+            # gaps included); "_device_ms": the kernels' own durations
+            row[key + "_ms"] = cuda_ms(fn, reps=reps)
+            row[key + "_device_ms"] = device_ms(fn, reps=reps)
+        row.update(bound_us=max(t_bytes, t_ops) * 1e3,
+                   bound_by="bytes" if t_bytes >= t_ops else "operations",
+                   bytes=moved, ops=ops)
+    return row
+
+
+def kernel_checks(pairs, slots, rng, device, timed):
+    """All three kernels on engine states of ``pairs`` at ``slots``."""
+    import torch
+    from repro_torch.core.engine import auction as auc
+    from repro_torch.core.engine import bounds as eb
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    pc, sm, level, g_cost = engine_states(pairs, slots, rng, device)
+    rows = {}
+
+    flat, _ = eb.lsa_kernel_operands(pc, sm, level, g_cost)
+    b, n = flat[0].shape
+    le = flat[2].shape[-1]
+    rows["lsa_children"] = check_kernel(
+        "lsa_children", kops.lsa_children, ref.lsa_children_ref, flat,
+        [flat[0]], ops=b * n * (6 * le + 4 * n + 5), timed=timed)
+
+    flat, _ = eb.bma_kernel_operands(pc, sm)
+    lam_like = torch.empty((b, n, n), device=device)
+    rows["bma_cost_matrix"] = check_kernel(
+        "bma_cost_matrix", kops.bma_cost_matrix, ref.bma_cost_matrix_ref,
+        flat, [lam_like], ops=b * n * n * (2 * le + 2 * n + 5), timed=timed)
+
+    lam = eb.bma_cost_matrix(pc, sm, use_kernel=True).reshape(-1, n, n)
+    prices = auc.run_auction(lam, 8).prices.contiguous()
+    red = lam + prices[:, None, :]
+    vec = torch.empty((b, n), device=device)
+    rows["reduced_top2"] = check_kernel(
+        "reduced_top2", kops.reduced_top2, ref.reduced_top2_ref,
+        [lam, prices], [vec, vec, vec], ops=3 * b * n * n,
+        library=lambda: torch.topk(red, 2, dim=-1, largest=False),
+        timed=timed)
+    return rows
+
+
+# ------------------------------------------------------------ main path
+
+def same_outcome(a, b) -> bool:
+    if (a.ged, a.similar, a.certified, a.lower_bound, a.upper_bound, a.tau,
+            a.stats) != (b.ged, b.similar, b.certified, b.lower_bound,
+                         b.upper_bound, b.tau, b.stats):
+        return False
+    if a.mapping is None or b.mapping is None:
+        return a.mapping is None and b.mapping is None
+    return bool(np.array_equal(a.mapping, b.mapping))
+
+
+def run_engine(backend, pairs, device, vocab, **overrides):
+    import torch
+    from repro_torch.ged import GedEngine
+    cfg = dict(pool=POOL, expand=EXPAND, max_iters=MAX_ITERS)
+    cfg.update(overrides)
+    eng = GedEngine(backend, device=device, vocab=vocab, **cfg)
+    t0 = time.perf_counter()
+    comp = eng.compute(pairs)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ver = eng.verify(pairs, tau=TAU)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return comp, ver, t1 - t0, t2 - t1
+
+
+def summarize(tag, comp, ver, t_comps, t_vers):
+    """The main path's row for one backend; times are the median (and
+    min, max) of the timed runs."""
+    its_c = max(o.stats["iterations"] for o in comp)
+    its_v = max(o.stats["iterations"] for o in ver)
+    t_comp, t_ver = statistics.median(t_comps), statistics.median(t_vers)
+    row = {
+        "runs": len(t_comps),
+        "compute_s": t_comp, "verify_s": t_ver,
+        "compute_s_min_max": [min(t_comps), max(t_comps)],
+        "verify_s_min_max": [min(t_vers), max(t_vers)],
+        "compute_pairs_per_s": len(comp) / t_comp,
+        "verify_pairs_per_s": len(ver) / t_ver,
+        "compute_certified": float(np.mean([o.certified for o in comp])),
+        "verify_certified": float(np.mean([o.certified for o in ver])),
+        "compute_mean_iterations": float(np.mean(
+            [o.stats["iterations"] for o in comp])),
+        "verify_mean_iterations": float(np.mean(
+            [o.stats["iterations"] for o in ver])),
+        "compute_loop_iterations": its_c, "verify_loop_iterations": its_v,
+        "compute_iters_per_s": its_c / t_comp,
+        "verify_iters_per_s": its_v / t_ver,
+    }
+    log(f"[main] {tag}: " + json.dumps(row))
+    return row
+
+
+def profile_launches(backend, pairs, vocab, iters: int = 16):
+    """CUDA launches per search iteration, device busy share and the
+    kernels that take the device time, from ``torch.profiler`` over a
+    short run of ``backend``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.ged import GedEngine
+    eng = GedEngine(backend, device="cuda", vocab=vocab, pool=POOL,
+                    expand=EXPAND, max_iters=iters)
+    eng.compute(pairs)                                  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs = eng.compute(pairs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    loops = max(o.stats["iterations"] for o in outs)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"launches_per_iter": "not measured",
+                "device_busy_share": "not measured"}
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    host_ops = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.cpu_parent is None]
+    by_name = {}
+    for e in kernels:
+        cnt, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (cnt + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    return {"profiled_iterations": loops, "profiled_wall_s": wall,
+            "launches_per_iter": len(kernels) / loops,
+            "host_ops_per_iter": len(host_ops) / loops,
+            "device_us_per_iter": busy_us / loops,
+            "wall_us_per_iter": wall * 1e6 / loops,
+            "device_busy_share": busy_us * 1e-6 / wall,
+            "top_kernels_by_device_time": [
+                [name[:60], cnt / loops, us / loops]
+                for name, (cnt, us) in top]}
+
+
+# ----------------------------------------------------------------- main
+
+def main(argv) -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from a checkout of the repository "
+              "(src/repro_torch is missing)", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.engine.tensor_graphs import label_vocab
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+
+    smi = smi_line()
+    log(f"[device] {smi}")
+    log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
+        f"python {sys.version.split()[0]}")
+    dev = resolve_device("cuda")
+
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    _build.library()
+    log(f"[build] {time.perf_counter() - t0:.2f} s -> {_build.library_path()}")
+
+    rng = np.random.default_rng(SEED)
+    pairs, ks = aids_pairs(rng, PAIRS, 20, 30)
+    checks = kernel_checks(pairs, 32, np.random.default_rng(SEED + 1), dev,
+                           timed=True)
+    for name, row in checks.items():
+        log(f"[kernel] {name} N=32 Le=3 B={PAIRS * EXPAND}: "
+            + json.dumps({k: v for k, v in row.items()
+                          if k not in ("bytes", "ops")}))
+    errs = {k: v["max_abs_err"] for k, v in checks.items()}
+    extra = [("Le=0", edgeless_pairs(np.random.default_rng(SEED + 2), 64, 6, 30), 32),
+             ("N=64", aids_pairs(np.random.default_rng(SEED + 3), PAIRS, 40, 60)[0], 64)]
+    for tag, ps, slots in extra:
+        rows = kernel_checks(ps, slots, np.random.default_rng(SEED + 4), dev,
+                             timed=False)
+        for name, row in rows.items():
+            errs[name] = max(errs[name], row["max_abs_err"])
+            log(f"[kernel] {name} {tag}: equal={row['equal']} "
+                f"out_shape={row['out_shape']}")
+    if "--kernels-only" in argv:
+        log(f"[device] {smi}")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    # ---- the main path: counts read around the "cuda" run only ----------
+    vocab = label_vocab(pairs)
+    run_engine("cuda", pairs[:8], "cuda", vocab, max_iters=4)   # warm-up
+    kops.reset_launch_counts()
+    comp_c, ver_c, tc, tv = run_engine("cuda", pairs, "cuda", vocab)
+    launches = kops.launch_counts()
+    log(f"[main] cuda launches: {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    assert not missing, f"kernels never launched on the main path: {missing}"
+
+    comp_t, ver_t, tc_t, tv_t = run_engine("torch", pairs, "cuda", vocab)
+    times = {"cuda": ([tc], [tv]), "torch": ([tc_t], [tv_t])}
+    for _ in range(REPEATS - 1):      # alternate the backends
+        for b in ("cuda", "torch"):
+            _, _, t_c, t_v = run_engine(b, pairs, "cuda", vocab)
+            times[b][0].append(t_c)
+            times[b][1].append(t_v)
+    summ = {"cuda": summarize("cuda", comp_c, ver_c, *times["cuda"]),
+            "torch": summarize("torch", comp_t, ver_t, *times["torch"])}
+    diff = [i for i, (a, b) in enumerate(zip(comp_c + ver_c, comp_t + ver_t))
+            if not same_outcome(a, b)]
+    assert not diff, f"cuda and torch outcomes differ at {diff[:10]}"
+    log("[main] cuda == torch on every outcome field "
+        f"({len(comp_c)} computations, {len(ver_c)} verifications)")
+
+    for o, k in zip(comp_c, ks):
+        if o.certified:
+            assert o.lower_bound <= o.ged <= k, (o, k)
+    for o, k in zip(ver_c, ks):
+        if o.certified and o.similar:
+            assert o.lower_bound == 0.0 and o.upper_bound <= TAU, (o, k)
+        elif o.certified:           # a proven rejection: TAU < ged <= k
+            assert o.lower_bound > TAU and k > TAU, (o, k)
+    log("[main] certified answers respect lower_bound <= ged <= k")
+
+    t0 = time.perf_counter()
+    comp_p, ver_p, _, _ = run_engine("torch", pairs[:CPU_PAIRS], "cpu", vocab)
+    for a, b in zip(comp_p + ver_p, comp_c[:CPU_PAIRS] + ver_c[:CPU_PAIRS]):
+        assert (a.ged, a.certified, a.similar, a.upper_bound) == \
+            (b.ged, b.certified, b.similar, b.upper_bound), (a, b)
+    log(f"[main] {CPU_PAIRS} pairs on the CPU agree with the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    prof = {b: profile_launches(b, pairs, vocab) for b in ("cuda", "torch")}
+    for b, row in prof.items():
+        log(f"[profile] {b}: " + json.dumps(row))
+
+    log("[kernels] " + ", ".join(
+        f"{k}: launches={launches[k]} equal=True" for k in KERNELS))
+    log(json.dumps({"main_path": summ, "profile": {
+        b: {k: v for k, v in row.items() if not k.startswith("top_")}
+        for b, row in prof.items()}}))
+    def device_or_call(row, key):
+        # device time where the profiler saw the kernels, else event time
+        dev = row[key + "_device_ms"]
+        return row[key + "_ms"] if dev is None else dev
+
+    log(json.dumps({"kernels": [{
+        "name": k, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{k}.cu",
+        "replaces": KERNELS[k], "launches": launches[k],
+        "max_abs_err": errs[k], "ms": device_or_call(checks[k], "kernel"),
+        "plain_ms": device_or_call(checks[k], "plain"),
+        "bound_ms": checks[k]["bound_us"] / 1e3,
+        "bound_by": checks[k]["bound_by"],
+        "library_ms": (device_or_call(checks[k], "library")
+                       if checks[k]["library_ms"] is not None else None)}
+        for k in KERNELS]}))
+    log(f"[device] {smi}")
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -1,0 +1,17 @@
+"""``repro_torch`` — the PyTorch/CUDA port of the batched GED engine.
+
+A second package beside the JAX reference (``repro``): the same packing,
+bound algebra, auction, sorted-pool search and ``GedEngine`` facade,
+written as plain PyTorch over explicit leading batch axes, with the hot
+bound kernels hand-written in CUDA C++ for Hopper (``kernels/csrc``).
+
+It imports ``torch`` and numpy only — never ``jax`` and nothing of
+``repro``; the numpy modules it needs (``core.exact.graph``,
+``core.exact.order``, ``data.graphs``) are kept here as copies.
+
+Entry points take ``device=`` and default to the card; without a visible
+GPU they raise and ask for ``device="cpu"`` instead of quietly running on
+the CPU.
+"""
+
+__all__ = ["core", "data", "ged", "kernels", "parallel"]

@@ -1,0 +1,302 @@
+"""Device-resident frontier search (the tensorised Alg. 2) in PyTorch.
+
+The counterpart of ``repro/core/engine/search.py``.  Where the reference
+runs one ``lax.while_loop`` per pair, ``vmap``-ed across pairs in
+lockstep, this runs one Python loop over a ``(pairs, P, ...)`` pool:
+every pair owns a fixed-capacity pool of search states kept **sorted by
+the strategy pop key** (AStar+: ``(lb, -level)``; DFS+: ``(-level, lb)``).
+Per iteration, for all pairs at once:
+
+  1. **pop**: the best ``expand`` states are the first ``B`` rows of each
+     sorted pool — a slice.
+  2. **expand**: score all children of each popped state (LSa via
+     histogram algebra, BMa via one auction + dual forced bounds; the
+     CUDA kernels under ``EngineConfig.use_kernel``).
+  3. **bound**: update the incumbent from exact leaf children and the
+     greedy-primal full-mapping extension.
+  4. **merge**: sort only the ``B*N`` child keys, rank-merge them into the
+     surviving pool and truncate to ``P`` rows; the smallest lower bound
+     ever dropped is the floor the exactness certificate rests on.
+
+A pair that has finished is frozen: every carried tensor keeps its old
+value under the same done mask as the reference (``search.py:268-270``),
+so ``iterations``, ``expanded`` and ``floor`` match it, and a pair's
+result does not depend on how long the other pairs of its batch run.
+Termination is read on the host every iteration: the loop is bound by
+host dispatch, so the device has all but drained when the read comes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core.engine import bounds as eb
+from repro_torch.core.engine.tensor_graphs import DevicePairs
+from repro_torch.kernels.autotune import KernelDispatch, concrete_dispatch
+from repro_torch.parallel.ops import merge_sorted_topk, sort_by_key, tree_map
+
+INF = 3.0e8
+BIG = eb.BIG
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    pool: int = 1024          # state-pool capacity P
+    expand: int = 8           # states expanded per iteration B
+    max_iters: int = 512
+    sweeps: int = 8           # auction sweeps per expansion
+    bound: str = "hybrid"     # "lsa" | "bma" | "hybrid" (max of both)
+    strategy: str = "astar"   # "astar" | "dfs"
+    # True/False turn the CUDA kernels of the bound families on/off;
+    # ``dispatch`` pins a concrete per-bucket plan instead.  The
+    # reference's measured "auto" dispatch is not ported yet.
+    use_kernel: bool = True
+    dispatch: Optional[KernelDispatch] = None
+
+    def __post_init__(self):
+        if self.use_kernel not in (True, False):
+            raise ValueError(
+                f"use_kernel must be True or False, got {self.use_kernel!r} "
+                "('auto' dispatch is not ported yet)")
+
+
+class PoolState(NamedTuple):
+    img: torch.Tensor       # (pairs, P, N) int32 images by order position (-1 = unset)
+    level: torch.Tensor     # (pairs, P) int32
+    gcost: torch.Tensor     # (pairs, P) f32
+    lb: torch.Tensor        # (pairs, P) f32
+    valid: torch.Tensor     # (pairs, P) bool
+
+
+class Carry(NamedTuple):
+    pool: PoolState
+    ub: torch.Tensor          # (pairs,) f32 incumbent
+    best_img: torch.Tensor    # (pairs, N) int32 incumbent mapping (by position)
+    floor: torch.Tensor       # (pairs,) f32 min lower bound ever dropped
+    it: torch.Tensor          # (pairs,) int32
+    expanded: torch.Tensor    # (pairs,) int32 total states expanded
+    done: torch.Tensor        # (pairs,) bool
+
+
+def _pop_key(cfg: EngineConfig, lb, level, valid, n):
+    nf = n.float()
+    if cfg.strategy == "astar":
+        key = lb * 256.0 + (nf - level.float())
+    else:  # dfs: deepest first, then smallest bound
+        key = (nf - level.float()) * 1.0e5 + lb
+    return torch.where(valid, key, INF)
+
+
+def _expand(pc: eb.PairConsts, cfg: EngineConfig, img, level, gcost,
+            state_valid):
+    """Score all children of a batch of states.  Returns per-child arrays
+    ``(..., N)`` plus the heuristic mapping ``(..., N)`` and its cost."""
+    sm = eb.state_masks(pc, img, level)
+    delta = eb.child_exact_delta(pc, sm)
+    child_gcost = gcost[..., None] + delta
+
+    d = concrete_dispatch(cfg, img.shape[-1])
+    lb_parts = []
+    if cfg.bound in ("lsa", "hybrid"):
+        lb_parts.append(eb.lsa_children(pc, sm, level, gcost,
+                                        use_kernel=d.lsa_fused))
+    if cfg.bound in ("bma", "hybrid"):
+        bma = eb.bma_children(pc, sm, img, level, gcost, cfg.sweeps,
+                              use_kernel=d.bma_fused)
+        lb_parts.append(bma.lb)
+        heur_img, heur_cost = bma.full_img, bma.full_cost
+    else:
+        heur_img = img
+        heur_cost = torch.full(level.shape, INF, device=img.device)
+    lb = lb_parts[0]
+    for p in lb_parts[1:]:
+        lb = torch.maximum(lb, p)
+
+    ok = (sm.free_g > 0) & state_valid[..., None]
+    lb = torch.where(ok, lb, INF)
+    child_gcost = torch.where(ok, child_gcost, INF)
+    heur_cost = torch.where(state_valid, heur_cost, INF)
+    return lb, child_gcost, heur_img, heur_cost
+
+
+def _row(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-pair row pick: ``x[p, idx[p]]`` for ``x`` of shape (pairs, R, ...)."""
+    idx = idx.long().reshape((-1, 1) + (1,) * (x.ndim - 2))
+    return torch.take_along_dim(x, idx, 1)[:, 0]
+
+
+def _step(pc: eb.PairConsts, cfg: EngineConfig, c: Carry, n: torch.Tensor,
+          tau: torch.Tensor, verification: bool) -> Carry:
+    """One search iteration for every pair; done pairs keep their carry."""
+    pool = c.pool
+    P, B = cfg.pool, cfg.expand
+    N = pool.img.shape[-1]
+    dev = pool.img.device
+    pos = torch.arange(N, dtype=torch.int32, device=dev)
+
+    # ---- pop: the pool is key-sorted, so the best B states are the first
+    # B rows of each pair's pool
+    sel_img = pool.img[:, :B]
+    sel_level = pool.level[:, :B]
+    sel_gcost = pool.gcost[:, :B]
+    sel_lb = pool.lb[:, :B]
+    sel_valid = pool.valid[:, :B] & (sel_lb < c.ub[:, None])   # Alg. 2 line 6
+    # the unpopped remainder stays sorted: nothing below mutates it
+    rem = PoolState(pool.img[:, B:], pool.level[:, B:], pool.gcost[:, B:],
+                    pool.lb[:, B:], pool.valid[:, B:])
+
+    # ---- expand ---------------------------------------------------------------
+    clb, cgc, heur_img, heur_cost = _expand(pc, cfg, sel_img, sel_level,
+                                            sel_gcost, sel_valid)  # (pairs, B, N)
+    # monotone bounds along root-leaf paths (§5.1)
+    clb = torch.maximum(clb, sel_lb[..., None])
+    child_level = sel_level + 1                                    # (pairs, B)
+    is_leaf = child_level[..., None] == n[:, None, None]           # (pairs, B, N)
+
+    # ---- incumbent update ------------------------------------------------------
+    leaf_costs = torch.where(is_leaf & (cgc < INF / 2), cgc, INF)
+    l_flat = leaf_costs.reshape(-1, B * N)
+    l_best = l_flat.argmin(-1)
+    l_cost = _row(l_flat[..., None], l_best)[:, 0]
+    lb_state, lu = l_best // N, (l_best % N).to(torch.int32)
+    leaf_img = torch.where(pos == _row(sel_level, lb_state)[:, None],
+                           lu[:, None], _row(sel_img, lb_state))
+
+    h_best = heur_cost.argmin(-1)
+    h_cost = _row(heur_cost[..., None], h_best)[:, 0]
+
+    new_ub = torch.minimum(c.ub, torch.minimum(l_cost, h_cost))
+    best_img = torch.where(
+        ((l_cost < c.ub) & (l_cost <= h_cost))[:, None], leaf_img,
+        torch.where((h_cost < c.ub)[:, None], _row(heur_img, h_best),
+                    c.best_img))
+
+    # ---- children to insert ----------------------------------------------------
+    ins_mask = (~is_leaf) & (clb < new_ub[:, None, None]) & (clb < INF / 2)
+    child_imgs = torch.where(
+        pos == sel_level[..., None, None],
+        pos[:, None].expand(N, N), sel_img[:, :, None, :])        # (pairs, B, N, N)
+    ch = PoolState(
+        child_imgs.reshape(-1, B * N, N),
+        child_level[..., None].expand(-1, B, N).reshape(-1, B * N),
+        cgc.reshape(-1, B * N),
+        torch.where(ins_mask, clb, INF).reshape(-1, B * N),
+        ins_mask.reshape(-1, B * N))
+
+    # ---- merge: keep best P by pop key ----------------------------------------
+    # Only the child keys are sorted; the sort permutation composes into the
+    # merge's source-index map (perm_b), so child payload rows never move
+    # before the merge.
+    n_col = n[:, None]
+    ch_keys = _pop_key(cfg, ch.lb, ch.level, ch.valid, n_col)
+    ch_keys, ch_order = sort_by_key(
+        ch_keys, torch.arange(B * N, device=dev).expand(ch_keys.shape))
+    rem_keys = _pop_key(cfg, rem.lb, rem.level, rem.valid, n_col)
+    # dropped states whose bound the incumbent already beat (lb >= new_ub)
+    # are pruned, not unexplored: they stay out of the floor
+    _, kept, dropped_lb = merge_sorted_topk(
+        rem_keys, ch_keys, rem, ch, P,
+        drop_a=torch.where(rem.valid & (rem.lb < new_ub[:, None]), rem.lb, INF),
+        drop_b=torch.where(ch.valid, ch.lb, INF),
+        perm_b=ch_order,
+        use_kernel=concrete_dispatch(cfg, N).merge_fused)
+    new_pool = kept._replace(lb=torch.where(kept.valid, kept.lb, INF))
+    new_floor = torch.minimum(c.floor, dropped_lb)
+
+    # ---- termination -------------------------------------------------------------
+    min_lb = torch.where(new_pool.valid, new_pool.lb, INF).amin(-1)
+    it = c.it + 1
+    exhausted = min_lb >= INF / 2
+    # min_lb >= ub: every remaining state is prunable, the incumbent is optimal
+    opt_done = min_lb >= new_ub
+    done = exhausted | opt_done | (it >= cfg.max_iters)
+    if verification:
+        done = done | (new_ub <= tau) | (torch.minimum(min_lb, new_floor) > tau)
+
+    new_c = Carry(new_pool, new_ub, best_img, new_floor, it,
+                  c.expanded + sel_valid.sum(-1, dtype=torch.int32), done)
+    # freeze pairs that were already done (the reference's lockstep mask)
+    return tree_map(
+        lambda new, old: torch.where(
+            c.done.reshape((-1,) + (1,) * (old.ndim - 1)), old, new),
+        new_c, c)
+
+
+def run_batch(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
+              verification: bool) -> Dict[str, torch.Tensor]:
+    """Search every pair of a packed batch; the reference's ``_run_batch``.
+
+    Returns the same keys as the reference: ``ged`` (computation mode) or
+    ``similar`` (verification), ``exact``, ``lower_bound``,
+    ``upper_bound``, ``iterations``, ``expanded``, ``best_img`` and, in
+    computation mode, ``floor`` — one row per pair, on the batch's device.
+    """
+    qv, gv, qa, ga, order, n, n_vlabels, n_elabels = pairs
+    npairs, N = qv.shape
+    P = cfg.pool
+    dev = qv.device
+    pc = eb.make_pair_consts(qv, gv, qa, ga, order, n, n_vlabels,
+                             n_elabels).unsqueeze(1)
+    taus = taus.to(device=dev, dtype=torch.float32)
+
+    def rows(fill, dtype, root=None):
+        t = torch.full((npairs, P), fill, dtype=dtype, device=dev)
+        if root is not None:
+            t[:, 0] = root
+        return t
+
+    pool0 = PoolState(
+        img=torch.full((npairs, P, N), -1, dtype=torch.int32, device=dev),
+        level=rows(0, torch.int32),
+        gcost=rows(INF, torch.float32, 0.0),
+        lb=rows(INF, torch.float32, 0.0),
+        valid=rows(False, torch.bool, True),
+    )
+    ub0 = (taus + 0.5) if verification else torch.full((npairs,), INF,
+                                                       device=dev)
+    c = Carry(pool0, ub0,
+              torch.full((npairs, N), -1, dtype=torch.int32, device=dev),
+              torch.full((npairs,), INF, device=dev),
+              torch.zeros(npairs, dtype=torch.int32, device=dev),
+              torch.zeros(npairs, dtype=torch.int32, device=dev),
+              n == 0)
+
+    for _ in range(cfg.max_iters):
+        if bool(c.done.all()):
+            break
+        c = _step(pc, cfg, c, n, taus, verification)
+
+    final = c
+    min_lb_end = torch.where(final.pool.valid, final.pool.lb, INF).amin(-1)
+    truncated = (final.it >= cfg.max_iters) & (min_lb_end < final.ub)
+    ged_val = final.ub
+    exact = (ged_val <= final.floor) & ~truncated
+    if verification:
+        similar = final.ub <= taus
+        exact = torch.where(
+            similar, True,
+            (torch.minimum(min_lb_end, final.floor) > taus) & ~truncated)
+        return {
+            "similar": similar,
+            "exact": exact,
+            "lower_bound": torch.where(similar, 0.0,
+                                       torch.minimum(min_lb_end, final.floor)),
+            "upper_bound": final.ub,
+            "iterations": final.it,
+            "expanded": final.expanded,
+            "best_img": final.best_img,
+        }
+    return {
+        "ged": ged_val,
+        "exact": exact,
+        "lower_bound": torch.minimum(torch.minimum(min_lb_end, final.floor),
+                                     final.ub),
+        "upper_bound": final.ub,
+        "iterations": final.it,
+        "expanded": final.expanded,
+        "best_img": final.best_img,
+        "floor": final.floor,
+    }

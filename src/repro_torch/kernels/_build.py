@@ -1,0 +1,129 @@
+"""Build and load the engine's CUDA kernels.
+
+The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+``ctypes``.  Each ``.cu`` file gets its own ``nvcc`` process, all started
+together, and the objects are then linked.  The library lands in
+``build/repro_torch_kernels/`` at the repository root, under a name that
+hashes the sources and flags, so an edit rebuilds and an unchanged tree
+reuses the last build.  Nothing here runs at import time: the first call
+to :func:`library` builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Dict, Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
+SOURCES = ("reduced_top2.cu", "bma_cost_matrix.cu", "lsa_children.cu")
+HEADERS = ("common.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3",
+    # every f32 add and multiply rounds on its own, as in the plain twins
+    "--fmad=false",
+    "-Xcompiler", "-fPIC",
+)
+
+_C_VOID_P = ctypes.c_void_p
+_C_LL = ctypes.c_longlong
+_C_INT = ctypes.c_int
+
+# argtypes of every exported entry point: pointers and the stream as
+# c_void_p (a bare Python int would be cut to 32 bits), sizes as ints
+_SIGNATURES: Dict[str, tuple] = {
+    "repro_reduced_top2": (_C_VOID_P,) * 5 + (_C_LL, _C_INT, _C_INT, _C_VOID_P),
+    "repro_bma_cost_matrix": (_C_VOID_P,) * 9 + (_C_LL,) + (_C_INT,) * 4 + (_C_VOID_P,),
+    "repro_lsa_children": (_C_VOID_P,) * 14 + (_C_LL, _C_INT, _C_INT, _C_INT, _C_VOID_P),
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile ``csrc/*.cu`` into the shared library (if not built yet)."""
+    target = library_path()
+    if target.exists():
+        return target
+    nvcc = nvcc_path()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for name in SOURCES:
+            obj = os.path.join(tmp, name.replace(".cu", ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", str(CSRC / name),
+                   "-o", obj]
+            procs.append((name, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(obj)
+        failures = []
+        for name, proc in procs:
+            out, _ = proc.communicate()
+            if verbose or proc.returncode:
+                print(f"[nvcc {name}]\n{out}", flush=True)
+            if proc.returncode:
+                failures.append(name)
+        if failures:
+            raise RuntimeError(f"nvcc failed for {failures}")
+        tmp_lib = os.path.join(tmp, target.name)
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
+                               tmp_lib], capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}"
+                               f"{link.stderr}")
+        os.replace(tmp_lib, target)
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def check(code: int, kernel: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if code != 0:
+        msg = library().repro_error_string(code).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed at or before its "
+                           f"launch: {msg} ({code})")

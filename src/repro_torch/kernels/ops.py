@@ -1,0 +1,163 @@
+"""Wrappers around the engine's CUDA kernels, with launch counters.
+
+Each wrapper takes the operands of its counterpart in
+``repro/kernels/ops.py`` (batched, or unbatched for one state).  For CPU
+tensors it calls the plain PyTorch twin in :mod:`repro_torch.kernels.ref`;
+for CUDA tensors it launches the hand-written kernel on PyTorch's current
+stream, or raises — there is no fallback from a failed kernel to its twin.
+``LAUNCHES`` counts kernel launches (never twin calls), so a run can show
+that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels import ref
+
+LAUNCHES: Dict[str, int] = {"reduced_top2": 0, "bma_cost_matrix": 0,
+                            "lsa_children": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def _on_card(*xs: torch.Tensor) -> bool:
+    """True when the operands live on a CUDA device; raises on a mix."""
+    kinds = {x.device for x in xs}
+    if len(kinds) != 1:
+        raise ValueError(f"kernel operands on several devices: {kinds}")
+    return next(iter(kinds)).type == "cuda"
+
+
+def _prep(x: torch.Tensor, dtype: torch.dtype, name: str) -> torch.Tensor:
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    return x.contiguous()
+
+
+def _checked(kernel: str, args, names, shapes, int_names):
+    """Validate each operand's shape and dtype; return contiguous copies."""
+    ops = []
+    for name, x, shape in zip(names, args, shapes):
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{kernel} {name} has shape {tuple(x.shape)}, "
+                             f"want {shape}")
+        ops.append(_prep(x, torch.int32 if name in int_names
+                         else torch.float32, name))
+    return ops
+
+
+def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
+    """Launch on PyTorch's current stream.  The operands may be temporary
+    contiguous copies that are freed when the wrapper returns, before the
+    kernel has run: the caching allocator only hands their memory to later
+    work on the same stream, which runs after this kernel."""
+    from repro_torch.kernels import _build
+    lib = _build.library()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    _build.check(getattr(lib, fn_name)(*args, device.index, stream), kernel)
+    LAUNCHES[kernel] += 1
+
+
+def reduced_top2(cost: torch.Tensor, prices: torch.Tensor):
+    """(min, argmin, 2nd-min) per row of ``cost + prices``; argmin int32."""
+    unbatched = cost.ndim == 2
+    if unbatched:
+        cost, prices = cost[None], prices[None]
+    if not _on_card(cost, prices):
+        m1, a1, m2 = ref.reduced_top2_ref(cost, prices)
+    else:
+        b, n, n2 = cost.shape
+        if n2 != n or prices.shape != (b, n):
+            raise ValueError(f"reduced_top2 shapes {tuple(cost.shape)} / "
+                             f"{tuple(prices.shape)}; want (B,N,N) / (B,N)")
+        cost = _prep(cost, torch.float32, "cost")
+        prices = _prep(prices, torch.float32, "prices")
+        m1 = torch.empty((b, n), dtype=torch.float32, device=cost.device)
+        a1 = torch.empty((b, n), dtype=torch.int32, device=cost.device)
+        m2 = torch.empty((b, n), dtype=torch.float32, device=cost.device)
+        if b * n:
+            _launch("reduced_top2", "repro_reduced_top2", cost.device,
+                    *(x.data_ptr() for x in (cost, prices, m1, a1, m2)), b, n)
+    if unbatched:
+        return m1[0], a1[0], m2[0]
+    return m1, a1, m2
+
+
+_BMA_NAMES = ("qv", "gv", "inner_q", "inner_g", "qa_ord", "ga", "img_cl",
+              "pos_anch")
+_BMA_INT = {"qv", "gv", "qa_ord", "ga", "img_cl"}
+
+
+def bma_cost_matrix(qv, gv, inner_q, inner_g, qa_ord, ga, img_cl, pos_anch):
+    """lambda^BMa free-pair cost matrix ``(B, N, N)``; batched or not.
+
+    Takes ``ga`` and ``img_cl`` like the reference wrapper: the gather
+    ``gcross[b, u, j] = ga[b, u, img_cl[b, j]]`` happens inside the kernel
+    (and inside the plain twin).  The per-pair operands ``qv``, ``gv``,
+    ``qa_ord`` and ``ga`` may carry ``P`` rows for the ``B`` rows of the
+    per-state ones, ``B`` a multiple of ``P``: state ``s`` then reads pair
+    row ``s // (B // P)``, so they are passed once per pair, not copied
+    to every state.
+    """
+    args = [qv, gv, inner_q, inner_g, qa_ord, ga, img_cl, pos_anch]
+    unbatched = qv.ndim == 1
+    if unbatched:
+        args = [x[None] for x in args]
+    if not _on_card(*args):
+        out = ref.bma_cost_matrix_ref(*args)
+    else:
+        p, n = args[0].shape
+        b, le = args[2].shape[0], args[2].shape[-1]
+        expand = ref.states_per_pair(p, b)
+        ops = _checked("bma_cost_matrix", args, _BMA_NAMES,
+                       [(p, n), (p, n), (b, n, le), (b, n, le), (p, n, n),
+                        (p, n, n), (b, n), (b, n)], _BMA_INT)
+        out = torch.empty((b, n, n), dtype=torch.float32, device=qv.device)
+        if b * n:
+            _launch("bma_cost_matrix", "repro_bma_cost_matrix", qv.device,
+                    *(x.data_ptr() for x in ops), out.data_ptr(), b, expand,
+                    n, le)
+    return out[0] if unbatched else out
+
+
+_LSA_NAMES = ("base", "free_g", "rowhist_g", "a_ju", "qrow", "pos_anch", "cq",
+              "cg", "base_j", "adjb_j", "hq_i", "hg_i", "cq_vi")
+_LSA_INT = {"a_ju", "qrow"}
+
+
+def lsa_children(base, free_g, rowhist_g, a_ju, qrow, pos_anch, cq, cg,
+                 base_j, adjb_j, hq_i, hg_i, cq_vi):
+    """Fused delta^LSa child-bound vector ``(B, N)``; batched or not.
+
+    Operands are the pre-reduced histograms ``bounds.lsa_children``
+    extracts with (N, Le)-sized contractions and gathers.
+    """
+    args = [base, free_g, rowhist_g, a_ju, qrow, pos_anch, cq, cg,
+            base_j, adjb_j, hq_i, hg_i, cq_vi]
+    unbatched = base.ndim == 1
+    if unbatched:
+        args = [x[None] for x in args]
+    if not _on_card(*args):
+        out = ref.lsa_children_ref(*args)
+    else:
+        b, n = args[0].shape
+        le = args[2].shape[-1]
+        ops = _checked("lsa_children", args, _LSA_NAMES,
+                       [(b, n), (b, n), (b, n, le), (b, n, n), (b, n), (b, n),
+                        (b, n, le), (b, n, le), (b, n), (b, n), (b, le),
+                        (b, le), (b, le)], _LSA_INT)
+        out = torch.empty((b, n), dtype=torch.float32, device=base.device)
+        if b * n:
+            _launch("lsa_children", "repro_lsa_children", base.device,
+                    *(x.data_ptr() for x in ops), out.data_ptr(), b, n, le)
+    return out[0] if unbatched else out

@@ -1,0 +1,196 @@
+"""The port's ``repro_torch.ged`` facade: import hygiene, device rules,
+backend policy, and outcomes against the reference ``repro.ged``.
+
+Outcomes are held to the reference's ``"jax"`` backend on the same pairs:
+``ged``, ``similar``, ``certified``, ``lower_bound``, ``upper_bound``,
+``mapping``, ``tau`` and the engine stats must be equal.
+"""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro import ged as ref_ged  # noqa: E402
+from repro.data.graphs import aids_like_graph, perturb, random_graph  # noqa: E402
+
+from repro_torch import ged  # noqa: E402
+from repro_torch.core.engine.api import dispatch_packed  # noqa: E402
+from repro_torch.core.engine.search import EngineConfig  # noqa: E402
+from repro_torch.core.engine.tensor_graphs import pack_pairs  # noqa: E402
+from repro_torch.ged.exec import Executor, PendingBatch  # noqa: E402
+from repro_torch.ged.plan import build_plan  # noqa: E402
+
+ROOT = Path(__file__).resolve().parent.parent
+SMALL = dict(pool=64, expand=4, max_iters=64)
+
+
+def _workload(seed, count, n_lo, n_hi):
+    """(vlabels, edges) pairs — the facade's adapter form, plain lists."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(count):
+        n = int(rng.integers(n_lo, n_hi + 1))
+        if i % 2:
+            g = random_graph(rng, n, density=0.4, n_vlabels=3, n_elabels=2)
+        else:
+            g = aids_like_graph(rng, n, n_vlabels=6, n_elabels=2)
+        h = perturb(rng, g, int(rng.integers(0, 4)), n_vlabels=6, n_elabels=2)
+        out.append(tuple(
+            (x.vlabels.tolist(), [e for e in x.edges()]) for x in (g, h)))
+    return out
+
+
+def _same(a, b):
+    assert (a.ged, a.similar, a.certified, a.lower_bound, a.upper_bound,
+            a.tau) == (b.ged, b.similar, b.certified, b.lower_bound,
+                       b.upper_bound, b.tau)
+    for k in ("rung", "iterations", "expanded"):
+        assert a.stats[k] == b.stats[k], k
+    if a.mapping is None or b.mapping is None:
+        assert a.mapping is None and b.mapping is None
+    else:
+        assert np.array_equal(a.mapping, b.mapping)
+
+
+# ---------------------------------------------------------- import hygiene
+
+def test_import_pulls_in_neither_jax_nor_the_reference():
+    code = (
+        "import pkgutil, sys\n"
+        "import repro_torch, repro_torch.ged\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    __import__(m.name)\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'repro')\n"
+        "       or m.startswith(('jax.', 'repro.'))]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_sources_have_no_jax_or_reference_imports():
+    pattern = re.compile(
+        r"^\s*(import\s+jax\b|from\s+jax\b|import\s+repro\b|"
+        r"from\s+repro(\.|\s+import))")
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    offenders = [f"{f.name}:{i}: {line.strip()}"
+                 for f in files
+                 for i, line in enumerate(f.read_text().splitlines(), 1)
+                 if pattern.match(line)]
+    assert not offenders, offenders
+
+
+# ------------------------------------------------------------ device rules
+
+def test_default_device_is_the_card_and_never_silently_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    pairs = _workload(0, 1, 3, 4)
+    for call in (lambda: ged.GedEngine(),
+                 lambda: ged.GedEngine("torch"),
+                 lambda: ged.compute(pairs),
+                 lambda: ged.verify(pairs, 1.0, backend="torch"),
+                 lambda: Executor(),
+                 lambda: dispatch_packed(pack_pairs(_graphs(pairs)), [0.0],
+                                         EngineConfig(), False)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert ged.GedEngine("torch", device="cpu").device.type == "cpu"
+
+
+def _graphs(pairs):
+    return [tuple(ged.as_graph(x) for x in p) for p in pairs]
+
+
+# ---------------------------------------------------------- backend policy
+
+@pytest.mark.parametrize("name", ["auto", "exact", "sharded"])
+def test_unported_backends_point_at_the_roadmap(name):
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        ged.GedEngine(name, device="cpu")
+
+
+def test_backend_registry_and_unknown_names():
+    assert ged.available_backends() == ("cuda", "torch")
+    with pytest.raises(ValueError, match="unknown backend"):
+        ged.GedEngine("pallas", device="cpu")
+    with pytest.raises(TypeError, match="unknown GedEngine options"):
+        ged.GedEngine("torch", device="cpu", pools=3)
+
+
+def test_use_kernel_contradictions_raise():
+    with pytest.raises(ValueError, match="implies use_kernel=False"):
+        ged.GedEngine("torch", device="cpu", use_kernel=True)
+    with pytest.raises(ValueError, match="implies use_kernel=True"):
+        ged.GedEngine("cuda", device="cpu", use_kernel=False)
+    eng = ged.GedEngine("torch", device="cpu", **SMALL)
+    assert eng.config.use_kernel is False
+    assert ged.GedEngine("cuda", device="cpu").config.use_kernel is True
+    with pytest.raises(ValueError, match="implies use_kernel"):
+        eng.compute(_workload(1, 1, 3, 4), use_kernel=True)
+    with pytest.raises(TypeError, match="unknown engine options"):
+        eng.compute(_workload(1, 1, 3, 4), pools=3)
+    assert eng.compute([]) == []
+
+
+# ------------------------------------------------------------- outcomes
+
+@pytest.mark.parametrize("verification", [False, True])
+def test_outcomes_equal_reference_jax_backend(verification):
+    """One slot bucket (pinned), both port backends on the CPU against the
+    reference's unfused ``"jax"`` backend."""
+    pairs = _workload(7, 6, 3, 8)
+    tau = [0.0, 1.0, 2.0, 3.0, 1.5, 2.5]
+    ref = ref_ged.GedEngine("jax", cache=False, slots=8, **SMALL)
+    want = ref.verify(pairs, tau) if verification else ref.compute(pairs)
+    for backend in ("torch", "cuda"):
+        eng = ged.GedEngine(backend, device="cpu", slots=8, **SMALL)
+        got = eng.verify(pairs, tau) if verification else eng.compute(pairs)
+        assert [o.backend for o in got] == [backend] * len(pairs)
+        for a, b in zip(got, want):
+            _same(a, b)
+
+
+def test_bucketed_workload_cuda_equals_torch_and_exact_answers():
+    """Mixed sizes land in several slot buckets; the two backends agree,
+    results come back in input order, and certified distances equal the
+    reference host solver's."""
+    pairs = _workload(3, 7, 2, 12)
+    plan = build_plan(pairs)
+    assert len(plan.buckets) >= 2
+    outs = {b: ged.GedEngine(b, device="cpu", **SMALL).compute(pairs)
+            for b in ("torch", "cuda")}
+    exact = ref_ged.GedEngine("exact", cache=False).compute(pairs)
+    for a, b, e in zip(outs["torch"], outs["cuda"], exact):
+        _same(a, b)
+        if a.certified:
+            assert a.ged == e.ged
+            assert a.lower_bound <= a.ged <= a.upper_bound
+
+
+def test_module_level_helpers_and_executor_stats():
+    pairs = _workload(5, 3, 3, 6)
+    comp = ged.compute(pairs, backend="torch", device="cpu", **SMALL)
+    ver = ged.verify(pairs, tau=2.0, backend="cuda", device="cpu", **SMALL)
+    assert [o.similar for o in comp] == [None] * 3
+    assert all(o.tau == 2.0 for o in ver)
+    for c, v in zip(comp, ver):
+        if c.certified and v.certified:
+            assert v.similar == (c.ged <= 2.0)
+    eng = ged.GedEngine("torch", device="cpu", **SMALL)
+    eng.compute(pairs)
+    assert eng.stats["executor_calls"] >= 1
+    assert eng.stats["executor_pairs"] == 3
+    p = PendingBatch({"x": torch.arange(3)})
+    assert p.result()["x"].tolist() == [0, 1, 2]
+    assert p.result() is p.result()

@@ -1,0 +1,377 @@
+"""The port's kernel twins and bound math against the JAX reference.
+
+Inputs are made with numpy from a seed and go through both the reference
+(``repro``: Pallas kernels in interpret mode or their ``ref.py`` oracles,
+the per-state bound functions) and the port (``repro_torch``).  Tolerances:
+
+* kernel twins vs reference kernels: exact (``np.array_equal``) — every
+  term is a small integer or half, or a min/argmin;
+* auction and forced bounds: exact where |value| < 2**20, ``rtol=1e-6``
+  above.  Prices inflate to ~BIG = 1e7 (the f32 ulp there is 1.0), so sums
+  that carry them may round differently if a backend reorders them.
+
+The kernels themselves run only on the card: ``tests/test_torch_cuda.py``
+(marker ``cuda``) and ``python3 chip_smoke.py`` hold each against its twin
+there.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.core.engine import auction as ref_auc  # noqa: E402
+from repro.core.engine import bounds as ref_eb  # noqa: E402
+from repro.core.engine.tensor_graphs import pack_pairs as ref_pack  # noqa: E402
+from repro.data.graphs import perturb, random_graph  # noqa: E402
+from repro.kernels import ops as ref_ops  # noqa: E402
+from repro.kernels import ref as ref_ref  # noqa: E402
+from repro.kernels.lsa_children import lsa_children_pallas  # noqa: E402
+from repro.kernels.reduced_top2 import reduced_top2_pallas  # noqa: E402
+
+from repro_torch.core.engine import auction as auc  # noqa: E402
+from repro_torch.core.engine import bounds as eb  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
+
+T = torch.as_tensor
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def assert_big_close(got, want):
+    """Exact below 2**20; rtol 1e-6 above (BIG-sized sums, see module doc)."""
+    got, want = _np(got), _np(want)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    small = np.abs(want) < 2.0 ** 20
+    np.testing.assert_array_equal(got[small], want[small])
+    np.testing.assert_allclose(got[~small], want[~small], rtol=1e-6)
+
+
+# ------------------------------------------------------------ kernel twins
+
+def _bma_inputs(rng, b, n, le, vl=5, el=3):
+    qv = rng.integers(0, vl, (b, n)).astype(np.int32)
+    gv = rng.integers(0, vl, (b, n)).astype(np.int32)
+    iq = rng.integers(0, 4, (b, n, le)).astype(np.float32)
+    ig = rng.integers(0, 4, (b, n, le)).astype(np.float32)
+    qa = rng.integers(0, el, (b, n, n)).astype(np.int32)
+    ga = rng.integers(0, el, (b, n, n)).astype(np.int32)
+    img = rng.integers(0, n, (b, n)).astype(np.int32)
+    pa = rng.integers(0, 2, (b, n)).astype(np.float32)
+    return qv, gv, iq, ig, qa, ga, img, pa
+
+
+PAIR_ARGS = (0, 1, 4, 5)   # qv, gv, qa_ord, ga: one row per pair
+
+
+@pytest.mark.parametrize("b,n,le,expand", [
+    (3, 16, 2, 1), (2, 5, 3, 1), (1, 32, 5, 1), (3, 6, 2, 4), (2, 5, 1, 8)])
+def test_bma_cost_matrix_twin_matches_reference(b, n, le, expand):
+    """With ``expand`` states per pair, the per-pair operands passed once
+    per pair give the reference's result on them copied to every state."""
+    rng = np.random.default_rng(b * 100 + n + le + expand)
+    per_pair = _bma_inputs(rng, b, n, le)
+    per_state = _bma_inputs(rng, b * expand, n, le)
+    args = [a if i in PAIR_ARGS else s
+            for i, (a, s) in enumerate(zip(per_pair, per_state))]
+    full = [np.repeat(a, expand, axis=0) if i in PAIR_ARGS else a
+            for i, a in enumerate(args)]
+    want = ref_ops.bma_cost_matrix(*(jnp.asarray(a) for a in full))
+    got = kops.bma_cost_matrix(*(T(a) for a in args))
+    assert np.array_equal(_np(got), np.asarray(want))
+    assert np.array_equal(_np(ref.bma_cost_matrix_ref(*(T(a) for a in args))),
+                          np.asarray(want))
+    if expand > 1:
+        args[6] = args[6][:-1]
+        with pytest.raises(ValueError, match="divide evenly"):
+            kops.bma_cost_matrix(*(T(a) for a in args))
+
+
+def test_bma_cost_matrix_twin_unbatched_and_edgeless():
+    rng = np.random.default_rng(7)
+    args = _bma_inputs(rng, 1, 8, 0)
+    gcross = np.take_along_axis(args[5], np.broadcast_to(
+        args[6][:, None, :], args[5].shape), axis=2)
+    want = ref_ref.bma_cost_matrix_ref(
+        *(jnp.asarray(a) for a in args[:5]), jnp.asarray(gcross),
+        jnp.asarray(args[7]))
+    got = kops.bma_cost_matrix(*(T(a[0]) for a in args))
+    assert np.array_equal(_np(got), np.asarray(want)[0])
+
+
+@pytest.mark.parametrize("b,n", [(1, 1), (4, 5), (2, 64)])
+def test_reduced_top2_twin_matches_reference(b, n):
+    rng = np.random.default_rng(b * 7 + n)
+    cost = rng.random((b, n, n)).astype(np.float32)
+    prices = (rng.random((b, n)) * 3).astype(np.float32)
+    want = ref_ref.reduced_top2_ref(jnp.asarray(cost), jnp.asarray(prices))
+    got = kops.reduced_top2(T(cost), T(prices))
+    for g, w in zip(got, want):
+        assert np.array_equal(_np(g), np.asarray(w))
+    assert got[1].dtype == torch.int32
+
+
+def test_reduced_top2_twin_ties_and_big_entries():
+    """Tied minima give m2 == m1 and the first index; BIG-sized rows
+    round like the Pallas kernel."""
+    rng = np.random.default_rng(3)
+    cost = rng.integers(0, 3, (3, 8, 8)).astype(np.float32)
+    cost[0, :, :4] = 1e7
+    cost[1, 2, :] = 1e7 + 1.0
+    prices = np.zeros((3, 8), np.float32)
+    prices[2] = rng.integers(0, 2, 8) * 1e7
+    want = reduced_top2_pallas(jnp.asarray(cost), jnp.asarray(prices),
+                               interpret=True)
+    got = kops.reduced_top2(T(cost), T(prices))
+    for g, w in zip(got, want):
+        assert np.array_equal(_np(g), np.asarray(w))
+    ties = _np(got[0]) == _np(got[2])
+    assert ties.any()
+
+
+def _lsa_inputs(rng, b, n, le):
+    f32 = np.float32
+    return (
+        (rng.integers(0, 6, (b, n)) * 0.5).astype(f32),        # base
+        rng.integers(0, 2, (b, n)).astype(f32),                 # free_g
+        rng.integers(0, 3, (b, n, le)).astype(f32),             # rowhist_g
+        rng.integers(0, le + 1, (b, n, n)).astype(np.int32),    # a_ju
+        rng.integers(0, le + 1, (b, n)).astype(np.int32),       # qrow
+        rng.integers(0, 2, (b, n)).astype(f32),                 # pos_anch
+        rng.integers(0, 3, (b, n, le)).astype(f32),             # cq
+        rng.integers(0, 3, (b, n, le)).astype(f32),             # cg
+        rng.integers(0, 4, (b, n)).astype(f32),                 # base_j
+        rng.integers(0, 4, (b, n)).astype(f32),                 # adjb_j
+        (rng.integers(0, 7, (b, le)) * 0.5).astype(f32),        # hq_i
+        (rng.integers(3, 9, (b, le)) * 0.5).astype(f32),        # hg_i
+        rng.integers(0, 3, (b, le)).astype(f32),                # cq_vi
+    )
+
+
+@pytest.mark.parametrize("b,n,le", [(3, 16, 3), (2, 6, 4)])
+def test_lsa_children_twin_matches_reference(b, n, le):
+    rng = np.random.default_rng(b * 31 + n * 3 + le)
+    args = _lsa_inputs(rng, b, n, le)
+    want = ref_ref.lsa_children_ref(*(jnp.asarray(a) for a in args))
+    got = kops.lsa_children(*(T(a) for a in args))
+    assert np.array_equal(_np(got), np.asarray(want))
+
+
+def test_lsa_children_twin_matches_pallas_kernel():
+    rng = np.random.default_rng(11)
+    args = _lsa_inputs(rng, 2, 16, 3)
+    want = lsa_children_pallas(*(jnp.asarray(a) for a in args),
+                               interpret=True)
+    got = kops.lsa_children(*(T(a[0]) for a in args))     # unbatched
+    assert np.array_equal(_np(got), np.asarray(want)[0])
+
+
+@pytest.mark.parametrize("na,nb", [(7, 5), (16, 16), (1, 9)])
+def test_merge_ranks_and_hist_intersect_twins(na, nb):
+    rng = np.random.default_rng(na * nb)
+    a = np.sort(rng.integers(0, 6, (3, na)).astype(np.float32), axis=1)
+    b = np.sort(rng.integers(0, 6, (3, nb)).astype(np.float32), axis=1)
+    a[0, -1] = np.inf
+    for g, w in zip(ref.merge_ranks_ref(T(a), T(b)),
+                    ref_ref.merge_ranks_ref(jnp.asarray(a), jnp.asarray(b))):
+        assert np.array_equal(_np(g), np.asarray(w)) and g.dtype == torch.int32
+    hq = rng.integers(0, 4, (2, na, 3)).astype(np.float32)
+    hg = rng.integers(0, 4, (2, nb, 3)).astype(np.float32)
+    assert np.array_equal(
+        _np(ref.hist_intersect_ref(T(hq), T(hg))),
+        np.asarray(ref_ref.hist_intersect_ref(jnp.asarray(hq),
+                                              jnp.asarray(hg))))
+
+
+def test_cpu_wrappers_use_twins_and_count_no_launches():
+    kops.reset_launch_counts()
+    rng = np.random.default_rng(0)
+    kops.reduced_top2(T(rng.random((2, 4, 4), np.float32)),
+                      T(rng.random((2, 4), np.float32)))
+    kops.bma_cost_matrix(*(T(a) for a in _bma_inputs(rng, 1, 4, 2)))
+    kops.lsa_children(*(T(a) for a in _lsa_inputs(rng, 1, 4, 2)))
+    assert kops.launch_counts() == {"reduced_top2": 0, "bma_cost_matrix": 0,
+                                    "lsa_children": 0}
+
+
+def test_kernel_build_is_lazy_and_content_addressed():
+    """Importing the wrappers builds nothing; the library name hashes the
+    sources, and lands under build/ at the repository root."""
+    assert _build._LIB is None or _build.library_path().exists()
+    path = _build.library_path()
+    assert path.parent.name == "repro_torch_kernels"
+    assert path.parent.parent.name == "build"
+    assert path == _build.library_path()
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == set(_build.SOURCES)
+
+
+# ----------------------------------------------------- engine-state bounds
+
+def _engine_state(rng, slots, n_graph, level):
+    """A real reference (PairConsts, StateMasks, level, g_cost) engine state
+    (built as in ``tests/test_kernels.py::_engine_state``), plus the raw
+    inputs."""
+    q = random_graph(rng, n_graph, density=0.4, n_vlabels=3, n_elabels=2)
+    g = perturb(rng, q, int(rng.integers(0, 4)), n_vlabels=3, n_elabels=2)
+    t = ref_pack([(q, g)], slots=slots)
+    pc = ref_eb.make_pair_consts(
+        jnp.asarray(t.qv[0]), jnp.asarray(t.gv[0]), jnp.asarray(t.qa[0]),
+        jnp.asarray(t.ga[0]), jnp.asarray(t.order[0]), jnp.asarray(t.n[0]),
+        t.n_vlabels, t.n_elabels)
+    n = int(t.n[0])
+    level = min(level, n - 1)
+    img = np.full(slots, -1, np.int32)
+    img[:level] = rng.permutation(n)[:level]
+    sm = ref_eb.state_masks(pc, jnp.asarray(img), jnp.int32(level))
+    g_cost = float(rng.integers(0, 7)) * 0.5
+    return pc, sm, jnp.int32(level), jnp.float32(g_cost), (t, img, level,
+                                                           g_cost)
+
+
+def _port_state(raw):
+    t, img, level, g_cost = raw
+    pc = eb.make_pair_consts(T(t.qv[0]), T(t.gv[0]), T(t.qa[0]), T(t.ga[0]),
+                             T(t.order[0]), T(t.n[0]), t.n_vlabels,
+                             t.n_elabels)
+    lvl = torch.tensor(level, dtype=torch.int32)
+    sm = eb.state_masks(pc, T(img), lvl)
+    return pc, sm, lvl, torch.tensor(g_cost, dtype=torch.float32)
+
+
+STATES = [(8, 5, 0), (8, 8, 3), (8, 7, 5)]
+
+
+@pytest.mark.parametrize("slots,n_graph,level", STATES)
+def test_engine_state_bounds_match_reference(slots, n_graph, level):
+    """Pair constants, state masks, exact deltas, both LSa paths, both BMa
+    cost-matrix paths and the BMa children of a real engine state equal the
+    reference's.  The bounds are held to the reference's *unfused* path
+    (its fused path fails on edgeless states, ROADMAP R1)."""
+    rng = np.random.default_rng(slots * 100 + n_graph * 10 + level)
+    rpc, rsm, rlvl, rgc, raw = _engine_state(rng, slots, n_graph, level)
+    pc, sm, lvl, gc = _port_state(raw)
+    for name in ("qa_ord", "oh_q", "oh_g", "oh_q_ord"):
+        assert np.array_equal(_np(getattr(pc, name)),
+                              np.asarray(getattr(rpc, name))), name
+    for name in rsm._fields:
+        assert np.array_equal(_np(getattr(sm, name)),
+                              np.asarray(getattr(rsm, name))), name
+    assert np.array_equal(_np(eb.child_exact_delta(pc, sm)),
+                          np.asarray(ref_eb.child_exact_delta(rpc, rsm)))
+    want_lsa = np.asarray(ref_eb.lsa_children(rpc, rsm, rlvl, rgc,
+                                              use_kernel=False))
+    want_bma = np.asarray(ref_eb.bma_cost_matrix(rpc, rsm, use_kernel=False))
+    for uk in (False, True):
+        assert np.array_equal(_np(eb.lsa_children(pc, sm, lvl, gc,
+                                                  use_kernel=uk)), want_lsa)
+        assert np.array_equal(_np(eb.bma_cost_matrix(pc, sm, use_kernel=uk)),
+                              want_bma)
+    img = raw[1]
+    want = ref_eb.bma_children(rpc, rsm, jnp.asarray(img), rlvl, rgc,
+                               sweeps=8, use_kernel=False)
+    got = eb.bma_children(pc, sm, T(img), lvl, gc, sweeps=8, use_kernel=True)
+    assert_big_close(got.lb, want.lb)
+    assert np.array_equal(_np(got.full_img), np.asarray(want.full_img))
+    assert_big_close(got.full_cost, want.full_cost)
+
+
+def test_edgeless_state_r1_reproducer():
+    """The ROADMAP R1 state (n_elabels == 0): the reference's fused path
+    raises there; the port's fused and unfused paths both answer and equal
+    the reference's unfused bounds."""
+    rpc, rsm, rlvl, rgc, raw = _engine_state(np.random.default_rng(832),
+                                             slots=8, n_graph=3, level=2)
+    assert raw[0].n_elabels == 0
+    pc, sm, lvl, gc = _port_state(raw)
+    want_lsa = np.asarray(ref_eb.lsa_children(rpc, rsm, rlvl, rgc,
+                                              use_kernel=False))
+    want_bma = np.asarray(ref_eb.bma_cost_matrix(rpc, rsm, use_kernel=False))
+    for uk in (False, True):
+        assert np.array_equal(_np(eb.lsa_children(pc, sm, lvl, gc,
+                                                  use_kernel=uk)), want_lsa)
+        assert np.array_equal(_np(eb.bma_cost_matrix(pc, sm, use_kernel=uk)),
+                              want_bma)
+
+
+def test_bma_kernel_operands_keep_pair_constants_per_pair():
+    """In the search's layout — pair constants ``(pairs, 1, ...)`` against
+    states ``(pairs, expand, ...)`` — the per-pair kernel operands keep one
+    row per pair, and both BMa paths agree."""
+    from repro_torch.core.engine.tensor_graphs import pack_pairs, to_device
+    from repro_torch.data import graphs as port_graphs
+    rng = np.random.default_rng(5)
+    pairs, expand, slots = 3, 4, 8
+    graphs = [port_graphs.random_graph(rng, int(rng.integers(4, 8)),
+                                       density=0.4, n_vlabels=3, n_elabels=2)
+              for _ in range(pairs)]
+    packed = pack_pairs([(g, port_graphs.perturb(rng, g, 2, n_vlabels=3,
+                                                 n_elabels=2))
+                         for g in graphs], slots=slots)
+    pc = eb.make_pair_consts(*to_device(packed, "cpu")).unsqueeze(1)
+    level = np.zeros((pairs, expand), np.int32)
+    img = np.full((pairs, expand, slots), -1, np.int32)
+    for p, n in enumerate(packed.n):
+        for e in range(expand):
+            level[p, e] = rng.integers(0, n)
+            img[p, e, :level[p, e]] = rng.permutation(n)[:level[p, e]]
+    sm = eb.state_masks(pc, T(img), T(level))
+    flat, lead = eb.bma_kernel_operands(pc, sm)
+    assert tuple(lead) == (pairs, expand)
+    assert [tuple(x.shape[:1]) for x in flat] == \
+        [(pairs,)] * 2 + [(pairs * expand,)] * 2 + [(pairs,)] * 2 \
+        + [(pairs * expand,)] * 2
+    assert torch.equal(eb.bma_cost_matrix(pc, sm, use_kernel=True),
+                       eb.bma_cost_matrix(pc, sm, use_kernel=False))
+
+
+# ------------------------------------------------------------------ auction
+
+def _lams(seed, count=4):
+    """BMa cost matrices of real engine states, stacked (S, N, N)."""
+    rng = np.random.default_rng(seed)
+    lams, rows = [], []
+    for k in range(count):
+        rpc, rsm, _, _, _ = _engine_state(rng, 8, 4 + k, k)
+        lams.append(np.asarray(ref_eb.bma_cost_matrix(rpc, rsm,
+                                                      use_kernel=False)))
+        rows.append(int(rsm.vi))
+    return np.stack(lams), np.asarray(rows, np.int32)
+
+
+@pytest.mark.parametrize("seed,sweeps", [(0, 8), (2, 3)])
+def test_auction_and_forced_bounds_match_reference(seed, sweeps):
+    lam, rows = _lams(seed)
+    rst = ref_auc.run_auction(jnp.asarray(lam), sweeps)
+    st = auc.run_auction(T(lam), sweeps)
+    assert_big_close(st.prices, rst.prices)
+    assert np.array_equal(_np(st.row_to_col), np.asarray(rst.row_to_col))
+    assert np.array_equal(_np(st.col_to_row), np.asarray(rst.col_to_row))
+    prices = np.array(rst.prices)
+    assert_big_close(
+        auc.forced_dual_bounds(T(lam), T(prices), T(rows)),
+        ref_auc.forced_dual_bounds(jnp.asarray(lam), jnp.asarray(prices),
+                                   jnp.asarray(rows)))
+    assert_big_close(auc.dual_bound(T(lam), T(prices)),
+                     ref_auc.dual_bound(jnp.asarray(lam),
+                                        jnp.asarray(prices)))
+    assert np.array_equal(
+        _np(auc.greedy_primal(T(lam), T(prices))),
+        np.asarray(ref_auc.greedy_primal(jnp.asarray(lam),
+                                         jnp.asarray(prices))))
+
+
+def test_seq_sum_is_index_ordered():
+    x = torch.tensor([[1e7, 0.5, 0.5, 0.5], [0.5, 0.5, 0.5, 1e7]])
+    got = auc.seq_sum(x, -1)
+    want = [np.float32(np.float32(np.float32(1e7) + np.float32(0.5))
+                       + np.float32(0.5)) + np.float32(0.5),
+            np.float32(1.5) + np.float32(1e7)]
+    assert _np(got).tolist() == [float(w) for w in want]
+    assert _np(auc.seq_sum(x.T, -2, keepdim=True)).shape == (1, 2)
