@@ -4,7 +4,7 @@
 Run from the repository root on a machine with an NVIDIA GPU and the CUDA
 toolkit (``nvcc``):
 
-    python3 chip_smoke.py                 # every phase, about two minutes
+    python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
 
 Phases (each failure raises; nothing falls back to the CPU):
@@ -22,7 +22,22 @@ Phases (each failure raises; nothing falls back to the CPU):
    field, launch counts read around the first ``"cuda"`` run, the wall
    times of ``REPEATS`` runs of each backend (median, min, max), 16 pairs
    re-run on the CPU, launches per iteration from ``torch.profiler``;
-5. a ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
+5. ``merge_ranks`` against its twin at 256 pairs and every escalation
+   rung's (pool - expand, expand x slots) shape at N = 32 and 64, on
+   sorted, unsorted and tied/+inf/3e8 runs (``torch.equal``), timed at each
+   shape beside its bound and the two ``torch.searchsorted`` calls it
+   replaces;
+6. ``autotune.tune()`` on the card at the shapes the ``"auto"`` path meets,
+   into a temporary tuning table;
+7. the ``"auto"`` path: 256 AIDS-like pairs plus 64 pairs at n 40-60 (slot
+   bucket 64) through ``GedEngine("auto", use_kernel="auto")`` on that
+   table (``compute`` and ``verify(tau=4)``): survivors per rung, host
+   solves, loop iterations and the resolved ``KernelDispatch`` of every
+   dispatch, launch counts, pairs/s over ``AUTO_REPEATS`` runs; then the
+   same mix with every family fused (launch counts read around it; every
+   kernel must launch), held field by field to the tuned run, to the
+   unfused run and, on 16 pairs, to the CPU;
+8. a ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -30,10 +45,12 @@ It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -44,6 +61,10 @@ SEED = 0
 PAIRS, EXPAND, POOL, MAX_ITERS, TAU = 256, 8, 1024, 512, 4.0
 CPU_PAIRS = 16
 REPEATS = 3          # timed runs of each backend on the main path
+AUTO_REPEATS = 3     # timed runs of the "auto" path
+BIG_PAIRS = 64       # pairs at n 40-60 (slot bucket 64) in the "auto" mix
+# the escalation rungs' (pool, expand, max_iters), as in runtime/scheduler.py
+RUNGS = ((256, 4, 128), (1024, 8, 512), (4096, 8, 2048))
 # NVIDIA H100 SXM data-sheet peaks: HBM3 bandwidth and f32 (non-tensor) rate
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
@@ -51,6 +72,7 @@ KERNELS = {
     "reduced_top2": "src/repro/kernels/reduced_top2.py:38",
     "bma_cost_matrix": "src/repro/kernels/bma_cost_matrix.py:69",
     "lsa_children": "src/repro/kernels/lsa_children.py:102",
+    "merge_ranks": "src/repro/kernels/merge_topk.py:48",
 }
 
 
@@ -238,6 +260,223 @@ def kernel_checks(pairs, slots, rng, device, timed):
     return rows
 
 
+def merge_keys(b, na, nb, kind, device, seed):
+    """Merge-rank runs: key-sorted, unsorted, or tied with +inf, the
+    engine's INF = 3e8 and signed zeros mixed in."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.randint(0, 4 * (na + nb), (b, na), generator=g).float()
+    k = torch.randint(0, 4 * (na + nb), (b, nb), generator=g).float()
+    if kind == "sorted":
+        a, k = a.sort(1).values, k.sort(1).values
+    elif kind == "ties":
+        a[:, ::2], k[:, ::2] = 7.0, 7.0
+        a[:, 1::5], k[:, 1::5] = float("inf"), float("inf")
+        a[:, 3::7], k[:, 3::7] = 3.0e8, 3.0e8
+        a[:, 4::9], k[:, 4::9] = -0.0, 0.0
+    return a.to(device), k.to(device)
+
+
+def merge_checks(device):
+    """``merge_ranks`` against its twin at every rung's shape, N = 32 and
+    64, 256 pairs; timed on sorted runs.  Returns {(rung, n): row}."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    rows = {}
+    for rung, (pool, expand, _) in enumerate(RUNGS):
+        for n in (32, 64):
+            na, nb = pool - expand, expand * n
+            for kind in ("unsorted", "ties", "sorted"):
+                a, b = merge_keys(PAIRS, na, nb, kind, device,
+                                  seed=rung * 100 + n)
+                timed = kind == "sorted"
+                row = check_kernel(
+                    "merge_ranks", kops.merge_ranks, ref.merge_ranks_ref,
+                    [a, b], [a, b], ops=PAIRS * (na + nb),
+                    library=lambda a=a, b=b: (
+                        torch.searchsorted(b, a, side="left"),
+                        torch.searchsorted(a, b, side="right")),
+                    timed=timed)
+                if timed:
+                    rows[(rung, n)] = row
+                log(f"[kernel] merge_ranks rung={rung} N={n} B={PAIRS} "
+                    f"NA={na} NB={nb} {kind}: " + json.dumps(
+                        {k: v for k, v in row.items()
+                         if k not in ("bytes", "ops")}))
+    return rows
+
+
+def tune_phase(tune_dir, device):
+    """The card's first tuning rows: lsa/bma at N = 32, 64 and B = pairs x
+    expand of each rung, merge at (pool, expand x slots) of each rung."""
+    from repro_torch.kernels import autotune
+    autotune.enable_autotune(tune_dir)
+    t0 = time.perf_counter()
+    entries = autotune.tune(
+        ns=(32, 64), bs=sorted({PAIRS * e for _, e, _ in RUNGS}),
+        kernels=("lsa", "bma"),
+        merge_shapes=[(pool, expand * n) for pool, expand, _ in RUNGS
+                      for n in (32, 64)],
+        device=device)
+    for e in entries:
+        log("[tune] " + json.dumps({k: e[k] for k in (
+            "kernel", "N", "B", "impl", "fused_us", "unfused_us",
+            "device_kind")}))
+    log(f"[tune] {len(entries)} entries in {time.perf_counter() - t0:.1f} s "
+        f"-> {tune_dir}")
+    return entries
+
+
+class DispatchTrace:
+    """Per dispatch of one engine: rung, bucket shape, the resolved
+    ``KernelDispatch`` and the loop iterations the batch ran.  Wraps the
+    engine executor's ``run_packed_async`` and the module's
+    ``resolve_config`` while in use."""
+
+    def __init__(self, eng):
+        from repro_torch.kernels import autotune
+        self.eng, self.autotune, self.rows = eng, autotune, []
+
+    def __enter__(self):
+        ex = self.eng._backend.executor
+        self._run, self._resolve = ex.run_packed_async, \
+            self.autotune.resolve_config
+        resolved = []
+
+        def resolve(cfg, slots, batch, device=None):
+            out = self._resolve(cfg, slots, batch, device)
+            resolved.append(out.dispatch)
+            return out
+
+        def run(packed, taus, cfg, verification, real=None):
+            pending = self._run(packed, taus, cfg, verification, real=real)
+            out = pending.result()
+            d = resolved.pop() if resolved else None
+            self.rows.append({
+                "rung": [r[0] for r in RUNGS].index(cfg.pool),
+                "slots": packed.slots, "batch": packed.batch, "real": real,
+                "loop_iterations": int(out["iterations"].max()),
+                "dispatch": None if d is None else {
+                    k: v for k, v in vars(d).items() if k.endswith("fused")}})
+            return pending
+
+        self.autotune.resolve_config = resolve
+        ex.run_packed_async = run
+        return self
+
+    def __exit__(self, *exc):
+        self.autotune.resolve_config = self._resolve
+        del self.eng._backend.executor.run_packed_async
+
+
+def auto_run(pairs, vocab, device, trace=False, **options):
+    """One ``"auto"`` engine over the mix: (compute, verify, stats, wall
+    seconds of each, dispatch rows)."""
+    import torch
+    from repro_torch.ged import GedEngine
+    eng = GedEngine("auto", device=device, vocab=vocab, **options)
+    with (DispatchTrace(eng) if trace else contextlib.nullcontext()) as tr:
+        t0 = time.perf_counter()
+        comp = eng.compute(pairs)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ver = eng.verify(pairs, tau=TAU)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return comp, ver, eng.stats, t1 - t0, t2 - t1, tr.rows if tr else None
+
+
+def auto_phase(pairs, ks, tune_dir):
+    """The "auto" path on the card; returns (summary, launches of the
+    all-fused run)."""
+    from repro_torch.core.engine.tensor_graphs import label_vocab
+    from repro_torch.ged import KernelDispatch
+    from repro_torch.kernels import ops as kops
+    vocab = label_vocab(pairs)
+    opts = dict(use_kernel="auto", autotune_dir=tune_dir)
+
+    kops.reset_launch_counts()
+    comp, ver, stats, tc, tv, rows = auto_run(pairs, vocab, "cuda",
+                                              trace=True, **opts)
+    tuned_launches = kops.launch_counts()
+    keep = ("pairs", "escalated", "host_solved", "batches", "dispatches",
+            "overlap_saved_s", "autotune_hits", "autotune_misses")
+    log("[auto] tuned stats: " + json.dumps(
+        {k: v for k, v in sorted(stats.items())
+         if k in keep or k.startswith("survivors_rung_")}))
+    for r in rows:
+        log("[auto] dispatch: " + json.dumps(r))
+    log(f"[auto] tuned launches: {json.dumps(tuned_launches)}")
+    times_c, times_v = [tc], [tv]
+    for _ in range(AUTO_REPEATS - 1):
+        _, _, _, t_c, t_v, _ = auto_run(pairs, vocab, "cuda", **opts)
+        times_c.append(t_c)
+        times_v.append(t_v)
+    per_rung = {}
+    for r in rows:
+        per_rung[r["rung"]] = max(per_rung.get(r["rung"], 0),
+                                  r["loop_iterations"])
+    summ = {
+        "pairs": len(pairs), "runs": len(times_c),
+        "compute_pairs_per_s": len(pairs) / statistics.median(times_c),
+        "compute_s_median_min_max": [statistics.median(times_c),
+                                     min(times_c), max(times_c)],
+        "verify_pairs_per_s": len(pairs) / statistics.median(times_v),
+        "verify_s_median_min_max": [statistics.median(times_v),
+                                    min(times_v), max(times_v)],
+        "loop_iterations_per_rung": per_rung,
+        "host_solved": stats["host_solved"],
+        "dispatches": stats["dispatches"],
+        "survivors": {k: v for k, v in stats.items()
+                      if k.startswith("survivors_rung_")},
+    }
+    log("[auto] summary: " + json.dumps(summ))
+
+    # every family fused: the merge kernel is on the path whatever the
+    # table chose; counts read around this run only
+    fused = KernelDispatch(lsa_fused=True, bma_fused=True, merge_fused=True)
+    kops.reset_launch_counts()
+    comp_f, ver_f, _, tcf, tvf, _ = auto_run(pairs, vocab, "cuda",
+                                             dispatch=fused)
+    launches = kops.launch_counts()
+    log(f"[auto] all-fused launches: {json.dumps(launches)} "
+        f"({tcf:.3f} s compute, {tvf:.3f} s verify)")
+    missing = [k for k, v in launches.items() if v <= 0]
+    assert not missing, f"kernels never launched on the auto path: {missing}"
+    comp_u, ver_u, _, tcu, tvu, _ = auto_run(pairs, vocab, "cuda",
+                                             use_kernel=False)
+    log(f"[auto] unfused: {tcu:.3f} s compute, {tvu:.3f} s verify")
+    for name, (c, v) in {"all-fused": (comp_f, ver_f),
+                         "unfused": (comp_u, ver_u)}.items():
+        diff = [i for i, (a, b) in enumerate(zip(comp + ver, c + v))
+                if not same_outcome(a, b)]
+        assert not diff, f"auto outcomes differ from {name} at {diff[:10]}"
+    log("[auto] tuned == all-fused == unfused on every outcome field")
+
+    assert all(o.certified for o in comp + ver), "uncertified auto answer"
+    for o, k in zip(comp, ks):
+        assert o.lower_bound <= o.ged <= k, (o, k)
+    for o, k in zip(ver, ks):
+        if o.similar:
+            assert o.lower_bound == 0.0 and o.upper_bound <= TAU, (o, k)
+        else:               # a proven rejection: TAU < ged <= k
+            assert o.lower_bound > TAU and k > TAU, (o, k)
+    log("[auto] every answer certified; every ged <= k")
+
+    t0 = time.perf_counter()
+    comp_p, ver_p, _, _, _, _ = auto_run(pairs[:CPU_PAIRS], vocab, "cpu")
+    diff = [i for i, (a, b) in enumerate(zip(
+        comp_p + ver_p, comp[:CPU_PAIRS] + ver[:CPU_PAIRS]))
+        if not same_outcome(a, b)]
+    assert not diff, f"CPU and card auto outcomes differ at {diff}"
+    log(f"[auto] {CPU_PAIRS} pairs on the CPU agree with the card "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return summ, launches
+
+
 # ------------------------------------------------------------ main path
 
 def same_outcome(a, b) -> bool:
@@ -384,6 +623,9 @@ def main(argv) -> int:
             errs[name] = max(errs[name], row["max_abs_err"])
             log(f"[kernel] {name} {tag}: equal={row['equal']} "
                 f"out_shape={row['out_shape']}")
+    merge_rows = merge_checks(dev)
+    checks["merge_ranks"] = merge_rows[(1, 32)]      # rung 1, N = 32
+    errs["merge_ranks"] = max(r["max_abs_err"] for r in merge_rows.values())
     if "--kernels-only" in argv:
         log(f"[device] {smi}")
         log(json.dumps({"ok": True, "device": {
@@ -396,9 +638,10 @@ def main(argv) -> int:
     run_engine("cuda", pairs[:8], "cuda", vocab, max_iters=4)   # warm-up
     kops.reset_launch_counts()
     comp_c, ver_c, tc, tv = run_engine("cuda", pairs, "cuda", vocab)
-    launches = kops.launch_counts()
-    log(f"[main] cuda launches: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
+    cuda_launches = kops.launch_counts()
+    log(f"[main] cuda launches: {json.dumps(cuda_launches)}")
+    missing = [k for k, v in cuda_launches.items()
+               if v <= 0 and k != "merge_ranks"]      # the merge is unfused
     assert not missing, f"kernels never launched on the main path: {missing}"
 
     comp_t, ver_t, tc_t, tv_t = run_engine("torch", pairs, "cuda", vocab)
@@ -438,9 +681,16 @@ def main(argv) -> int:
     for b, row in prof.items():
         log(f"[profile] {b}: " + json.dumps(row))
 
+    # ---- the "auto" path on a tuning table measured here --------------
+    big, big_ks = aids_pairs(np.random.default_rng(SEED + 5), BIG_PAIRS,
+                             40, 60)
+    with tempfile.TemporaryDirectory() as tune_dir:
+        tune_phase(tune_dir, dev)
+        auto_summ, launches = auto_phase(pairs + big, ks + big_ks, tune_dir)
+
     log("[kernels] " + ", ".join(
         f"{k}: launches={launches[k]} equal=True" for k in KERNELS))
-    log(json.dumps({"main_path": summ, "profile": {
+    log(json.dumps({"main_path": summ, "auto_path": auto_summ, "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))
     def device_or_call(row, key):

@@ -1,17 +1,20 @@
 """``repro_torch`` — the PyTorch/CUDA port of the batched GED engine.
 
 A second package beside the JAX reference (``repro``): the same packing,
-bound algebra, auction, sorted-pool search and ``GedEngine`` facade,
+bound algebra, auction, sorted-pool search, escalating ``"auto"`` backend
+with the host solver and measured kernel dispatch, and ``GedEngine`` facade,
 written as plain PyTorch over explicit leading batch axes, with the hot
 bound kernels hand-written in CUDA C++ for Hopper (``kernels/csrc``).
 
 It imports ``torch`` and numpy only — never ``jax`` and nothing of
-``repro``; the numpy modules it needs (``core.exact.graph``,
-``core.exact.order``, ``data.graphs``) are kept here as copies.
+``repro``; the numpy modules it needs (the host solver ``core.exact``,
+``data.graphs``, ``runtime.scheduler``, ``store_io.atomic``) are kept here
+as copies.
 
 Entry points take ``device=`` and default to the card; without a visible
 GPU they raise and ask for ``device="cpu"`` instead of quietly running on
 the CPU.
 """
 
-__all__ = ["core", "data", "ged", "kernels", "parallel"]
+__all__ = ["core", "data", "ged", "kernels", "parallel", "runtime",
+           "store_io"]

@@ -29,7 +29,7 @@ host dispatch, so the device has all but drained when the read comes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -51,16 +51,17 @@ class EngineConfig:
     bound: str = "hybrid"     # "lsa" | "bma" | "hybrid" (max of both)
     strategy: str = "astar"   # "astar" | "dfs"
     # True/False turn the CUDA kernels of the bound families on/off;
-    # ``dispatch`` pins a concrete per-bucket plan instead.  The
-    # reference's measured "auto" dispatch is not ported yet.
-    use_kernel: bool = True
+    # "auto" resolves per bucket shape through the measured tuning table
+    # (kernels/autotune.py).  ``dispatch`` is the resolved per-bucket plan
+    # the executor pins; outcomes are bit-identical across every plan.
+    use_kernel: Union[bool, str] = True
     dispatch: Optional[KernelDispatch] = None
 
     def __post_init__(self):
-        if self.use_kernel not in (True, False):
+        if self.use_kernel not in (True, False, "auto"):
             raise ValueError(
-                f"use_kernel must be True or False, got {self.use_kernel!r} "
-                "('auto' dispatch is not ported yet)")
+                f"use_kernel must be True, False or 'auto', "
+                f"got {self.use_kernel!r}")
 
 
 class PoolState(NamedTuple):
@@ -98,7 +99,7 @@ def _expand(pc: eb.PairConsts, cfg: EngineConfig, img, level, gcost,
     delta = eb.child_exact_delta(pc, sm)
     child_gcost = gcost[..., None] + delta
 
-    d = concrete_dispatch(cfg, img.shape[-1])
+    d = concrete_dispatch(cfg, img.shape[-1], img.device)
     lb_parts = []
     if cfg.bound in ("lsa", "hybrid"):
         lb_parts.append(eb.lsa_children(pc, sm, level, gcost,
@@ -202,7 +203,7 @@ def _step(pc: eb.PairConsts, cfg: EngineConfig, c: Carry, n: torch.Tensor,
         drop_a=torch.where(rem.valid & (rem.lb < new_ub[:, None]), rem.lb, INF),
         drop_b=torch.where(ch.valid, ch.lb, INF),
         perm_b=ch_order,
-        use_kernel=concrete_dispatch(cfg, N).merge_fused)
+        use_kernel=concrete_dispatch(cfg, N, dev).merge_fused)
     new_pool = kept._replace(lb=torch.where(kept.valid, kept.lb, INF))
     new_floor = torch.minimum(c.floor, dropped_lb)
 

@@ -105,25 +105,33 @@ def pad_tail(values: np.ndarray, batch: int) -> np.ndarray:
                                           axis=0)])
 
 
-def padded_batch(real: int) -> int:
-    """Batch size after padding: the power of two >= ``real``.
+def padded_batch(real: int, batch_multiple: int = 1) -> int:
+    """Batch size after padding: the power of two >= ``real``, rounded up to
+    a multiple of ``batch_multiple`` (the executor's shard count).
 
     >>> [padded_batch(r) for r in (1, 3, 5)]
     [1, 4, 8]
+    >>> padded_batch(9, batch_multiple=8)
+    16
     """
-    return _pow2(real)
+    b = _pow2(real)
+    if b % batch_multiple:
+        b = -(-b // batch_multiple) * batch_multiple
+    return b
 
 
 def pack_bucket(
     pairs: Sequence[Tuple[Graph, Graph]],
     slots: int,
     vocab: Optional[Vocab],
+    batch_multiple: int = 1,
 ) -> Tuple[GraphPairTensors, int]:
     """Pack ``pairs`` at ``slots``, padding the batch dim to
     :func:`padded_batch` (the filler repeats the last pair).  Returns
     ``(tensors, real_count)``."""
     real = len(pairs)
-    padded = list(pairs) + [pairs[-1]] * (padded_batch(real) - real)
+    padded = list(pairs) + [pairs[-1]] * (padded_batch(real, batch_multiple)
+                                          - real)
     return pack_pairs(padded, slots=slots, vocab=vocab), real
 
 
@@ -144,14 +152,61 @@ class Plan:
     pairs: List[Tuple[Graph, Graph]]
     buckets: List[Bucket]
     vocab: Vocab
+    fixed_slots: Optional[int]  # user-pinned slot count (disables bucketing)
+
+    @classmethod
+    def lazy(cls, pairs, vocab: Optional[Vocab] = None,
+             slots: Optional[int] = None) -> "Plan":
+        """A plan with *no* packed buckets: pack subsets on demand with
+        :meth:`subset_buckets`.
+
+        >>> plan = Plan.lazy([(([0], []), ([1], []))])
+        >>> plan.buckets, plan.vocab
+        ([], ((0, 1), ()))
+        """
+        pairs = as_pairs(pairs)
+        if vocab is None:
+            vocab = label_vocab(pairs)
+        return cls(pairs, [], vocab, slots)
+
+    def subset_buckets(self, indices: Sequence[int], packer) -> List[Bucket]:
+        """Re-bucket a subset of this plan's pairs.
+
+        The overlapped ``auto`` backend calls this between escalation
+        rungs: survivors of rung *k* are regrouped by slot bucket
+        (honouring ``fixed_slots``) and re-packed with the plan's shared
+        vocab.  ``packer`` is :meth:`repro_torch.ged.exec.Executor.pack`
+        shaped: ``packer(pairs, slots, vocab) -> (tensors, real)``.
+
+        >>> plan = build_plan([(([0], []), ([1], [])),
+        ...                    (([0] * 6, []), ([0] * 5, []))])
+        >>> [(b.slots, b.indices) for b in plan.subset_buckets(
+        ...     [1, 0], lambda p, s, v: pack_bucket(p, s, v))]
+        [(4, [0]), (8, [1])]
+        """
+        by_slots: Dict[int, List[int]] = {}
+        for gi in indices:
+            q, g = self.pairs[gi]
+            s = self.fixed_slots or slot_bucket(max(q.n, g.n))
+            by_slots.setdefault(s, []).append(gi)
+        out = []
+        for s in sorted(by_slots):
+            idxs = by_slots[s]
+            packed, real = packer([self.pairs[i] for i in idxs], s,
+                                  self.vocab)
+            out.append(Bucket(s, idxs, packed, real))
+        return out
 
 
 def build_plan(
     raw_pairs,
     slots: Optional[int] = None,
     vocab: Optional[Vocab] = None,
+    batch_multiple: int = 1,
 ) -> Plan:
     """Ingest ``raw_pairs`` and group them into canonical-shape buckets.
+
+    ``batch_multiple`` pads every bucket's batch to a multiple of it.
 
     >>> plan = build_plan([(([0], []), ([1], [])),
     ...                    (([0] * 6, []), ([0] * 5, []))])
@@ -171,6 +226,7 @@ def build_plan(
     buckets = []
     for s in sorted(by_slots):
         idxs = by_slots[s]
-        packed, real = pack_bucket([pairs[i] for i in idxs], s, vocab)
+        packed, real = pack_bucket([pairs[i] for i in idxs], s, vocab,
+                                   batch_multiple)
         buckets.append(Bucket(s, idxs, packed, real))
-    return Plan(pairs, buckets, vocab)
+    return Plan(pairs, buckets, vocab, slots)

@@ -23,7 +23,8 @@ from typing import Dict, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("reduced_top2.cu", "bma_cost_matrix.cu", "lsa_children.cu")
+SOURCES = ("reduced_top2.cu", "bma_cost_matrix.cu", "lsa_children.cu",
+           "merge_ranks.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +44,7 @@ _SIGNATURES: Dict[str, tuple] = {
     "repro_reduced_top2": (_C_VOID_P,) * 5 + (_C_LL, _C_INT, _C_INT, _C_VOID_P),
     "repro_bma_cost_matrix": (_C_VOID_P,) * 9 + (_C_LL,) + (_C_INT,) * 4 + (_C_VOID_P,),
     "repro_lsa_children": (_C_VOID_P,) * 14 + (_C_LL, _C_INT, _C_INT, _C_INT, _C_VOID_P),
+    "repro_merge_ranks": (_C_VOID_P,) * 4 + (_C_LL, _C_INT, _C_INT, _C_INT, _C_VOID_P),
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -18,7 +18,7 @@ import torch
 from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"reduced_top2": 0, "bma_cost_matrix": 0,
-                            "lsa_children": 0}
+                            "lsa_children": 0, "merge_ranks": 0}
 
 
 def reset_launch_counts() -> None:
@@ -161,3 +161,35 @@ def lsa_children(base, free_g, rowhist_g, a_ju, qrow, pos_anch, cq, cg,
             _launch("lsa_children", "repro_lsa_children", base.device,
                     *(x.data_ptr() for x in ops), out.data_ptr(), b, n, le)
     return out[0] if unbatched else out
+
+
+def merge_ranks(keys_a: torch.Tensor, keys_b: torch.Tensor):
+    """Rank counts of a two-run merge, ``(count_a, count_b)`` int32.
+
+    ``count_a[b, i] = #{j : keys_b[b, j] < keys_a[b, i]}`` and
+    ``count_b[b, j] = #{i : keys_a[b, i] <= keys_b[b, j]}``: plain
+    comparison counts, which equal the searchsorted left/right ranks when
+    the runs are sorted.  Batched ``(B, NA)`` / ``(B, NB)`` or unbatched.
+    """
+    unbatched = keys_a.ndim == 1
+    if unbatched:
+        keys_a, keys_b = keys_a[None], keys_b[None]
+    if not _on_card(keys_a, keys_b):
+        count_a, count_b = ref.merge_ranks_ref(keys_a, keys_b)
+    else:
+        b, na = keys_a.shape
+        if keys_b.ndim != 2 or keys_b.shape[0] != b:
+            raise ValueError(f"merge_ranks shapes {tuple(keys_a.shape)} / "
+                             f"{tuple(keys_b.shape)}; want (B,NA) / (B,NB)")
+        nb = keys_b.shape[1]
+        keys_a = _prep(keys_a, torch.float32, "keys_a")
+        keys_b = _prep(keys_b, torch.float32, "keys_b")
+        count_a = torch.empty((b, na), dtype=torch.int32, device=keys_a.device)
+        count_b = torch.empty((b, nb), dtype=torch.int32, device=keys_a.device)
+        if b * (na + nb):
+            _launch("merge_ranks", "repro_merge_ranks", keys_a.device,
+                    *(x.data_ptr() for x in (keys_a, keys_b, count_a,
+                                             count_b)), b, na, nb)
+    if unbatched:
+        return count_a[0], count_b[0]
+    return count_a, count_b

@@ -4,7 +4,8 @@ The PyTorch counterparts of ``sort_by_key`` and ``merge_sorted_topk`` in
 ``repro/parallel/ops.py``, batched over leading axes: keys are
 ``(*lead, n)`` and every payload leaf is ``(*lead, n, *rest)``.  The
 search loop keeps its pool key-sorted; pop is a slice, and the merge folds
-the freshly sorted children in with two binary-search rank passes.
+the freshly sorted children in with two rank passes (binary searches, or
+the merge-ranks kernel).
 """
 
 from __future__ import annotations
@@ -69,20 +70,26 @@ def merge_sorted_topk(
     order with the sort permutation (sorted position ``j`` came from row
     ``perm_b[j]``).
 
-    ``use_kernel=True`` would count the ranks with the merge-ranks kernel,
-    which is not ported yet.
+    ``use_kernel=True`` counts the two rank passes with the merge-ranks
+    kernel (``kernels/ops.py::merge_ranks``) instead of binary searches:
+    the same integer ranks, so the output is bit-identical, and everything
+    downstream (scatters, payload gather, floor) is shared.
     """
-    if use_kernel:
-        raise NotImplementedError(
-            "merge_ranks (repro/kernels/merge_topk.py) is still to port; "
-            "run the merge with use_kernel=False")
     lead = keys_a.shape[:-1]
     na, nb = keys_a.shape[-1], keys_b.shape[-1]
     dev = keys_a.device
-    rank_a = torch.arange(na, device=dev) + torch.searchsorted(
-        keys_b.contiguous(), keys_a.contiguous(), side="left")
-    rank_b = torch.arange(nb, device=dev) + torch.searchsorted(
-        keys_a.contiguous(), keys_b.contiguous(), side="right")
+    if use_kernel:
+        from repro_torch.kernels import ops as kops
+        rows = lead.numel()
+        count_a, count_b = kops.merge_ranks(keys_a.reshape(rows, na),
+                                            keys_b.reshape(rows, nb))
+        rank_a = torch.arange(na, device=dev) + count_a.reshape(*lead, na)
+        rank_b = torch.arange(nb, device=dev) + count_b.reshape(*lead, nb)
+    else:
+        rank_a = torch.arange(na, device=dev) + torch.searchsorted(
+            keys_b.contiguous(), keys_a.contiguous(), side="left")
+        rank_b = torch.arange(nb, device=dev) + torch.searchsorted(
+            keys_a.contiguous(), keys_b.contiguous(), side="right")
 
     # JAX drops out-of-range scatter writes (mode="drop"); torch would
     # raise, and on the card fire a device-side assert.  Ranks >= keep go

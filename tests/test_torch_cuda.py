@@ -186,3 +186,58 @@ def test_card_outcomes_equal_cpu_outcomes(card, verification):
                     a.upper_bound, a.stats) == \
                 (b.ged, b.similar, b.certified, b.lower_bound,
                  b.upper_bound, b.stats)
+
+
+MERGE_SHAPES = [(252, 128), (1016, 256), (4088, 256), (1016, 512),
+                (4088, 512), (100, 700), (0, 5), (7, 0)]
+
+
+@pytest.mark.parametrize("na,nb", MERGE_SHAPES)
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "ties_inf_big"])
+def test_merge_ranks_equals_its_twin(card, na, nb, kind):
+    """The escalation rungs' (pool - expand, expand x slots) shapes at
+    N = 32 and 64, NB above NA, empty runs; unsorted runs, ties, +inf,
+    the engine's INF = 3e8 and signed zeros."""
+    g = torch.Generator(device="cpu").manual_seed(na * 7 + nb)
+    a = torch.randint(0, 50, (37, na), generator=g).float()
+    b = torch.randint(0, 50, (37, nb), generator=g).float()
+    if kind == "sorted":
+        a, b = a.sort(1).values, b.sort(1).values
+    elif kind == "ties_inf_big":
+        a[:, ::2], b[:, ::2] = 3.0, 3.0
+        a[:, 1::5], b[:, 1::5] = float("inf"), float("inf")
+        a[:, 3::7], b[:, 3::7] = 3.0e8, 3.0e8
+        a[:, 4::9], b[:, 4::9] = -0.0, 0.0
+    a, b = a.to(card), b.to(card)
+    kops.reset_launch_counts()
+    got = kops.merge_ranks(a, b)
+    torch.cuda.synchronize()
+    for x, y in zip(got, ref.merge_ranks_ref(a, b)):
+        assert x.dtype == torch.int32 and torch.equal(x, y)
+    assert kops.launch_counts()["merge_ranks"] == (1 if na + nb else 0)
+    one = kops.merge_ranks(a[0], b[0])
+    assert torch.equal(one[0], got[0][0]) and torch.equal(one[1], got[1][0])
+
+
+@pytest.mark.parametrize("verification", [False, True])
+def test_auto_card_outcomes_equal_cpu_outcomes(card, verification):
+    """The default ``"auto"`` backend with every family fused (the merge
+    kernel included) on the card gives the CPU's outcomes."""
+    rng = np.random.default_rng(11)
+    pairs = _pairs(rng, 12, 4, 14)
+
+    def run(device, **kw):
+        eng = ged.GedEngine(device=device, **kw)
+        eng._backend.scheduler.rungs = ((16, 2, 8), (64, 4, 32))
+        return eng.verify(pairs, 2.0) if verification else eng.compute(pairs)
+
+    want = run("cpu")
+    kops.reset_launch_counts()
+    got = run(card, dispatch=ged.KernelDispatch(
+        lsa_fused=True, bma_fused=True, merge_fused=True))
+    assert kops.launch_counts()["merge_ranks"] > 0
+    for a, b in zip(got, want):
+        assert (a.ged, a.similar, a.certified, a.lower_bound,
+                a.upper_bound, a.backend, a.stats["rung"]) == \
+            (b.ged, b.similar, b.certified, b.lower_bound, b.upper_bound,
+             b.backend, b.stats["rung"])

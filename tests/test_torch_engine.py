@@ -7,7 +7,8 @@ output dict (``ged``/``similar``, ``exact``, ``lower_bound``,
 ``upper_bound``, ``iterations``, ``expanded``, ``best_img``, ``floor``)
 equal to ``repro.core.engine.api.dispatch_packed``'s on the identical
 packed input (``tensor_graphs.from_reference``), for A*/DFS, computation
-and verification, every bound family, kernels on and off.
+and verification, every bound family, kernels on and off, the merge kernel
+included.
 """
 
 import numpy as np
@@ -19,6 +20,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core.engine.api import dispatch_packed as ref_dispatch  # noqa: E402
 from repro.core.engine.search import EngineConfig as RefConfig  # noqa: E402
+from repro.kernels.autotune import KernelDispatch as RefDispatch  # noqa: E402
 from repro.core.engine.tensor_graphs import label_vocab as ref_vocab  # noqa: E402
 from repro.core.engine.tensor_graphs import pack_pairs as ref_pack  # noqa: E402
 from repro.data.graphs import aids_like_graph, perturb, random_graph  # noqa: E402
@@ -103,11 +105,12 @@ def test_from_reference_and_to_device_carry_the_batch():
 
 # ------------------------------------------------------ frontier primitives
 
-def _ref_merge_rows(a, b, pa, pb, keep, da, db, perm):
+def _ref_merge_rows(a, b, pa, pb, keep, da, db, perm, use_kernel=False):
     outs = [ref_merge(jnp.asarray(a[i]), jnp.asarray(b[i]),
                       jnp.asarray(pa[i]), jnp.asarray(pb[i]), keep,
                       drop_a=jnp.asarray(da[i]), drop_b=jnp.asarray(db[i]),
-                      perm_b=None if perm is None else jnp.asarray(perm[i]))
+                      perm_b=None if perm is None else jnp.asarray(perm[i]),
+                      use_kernel=use_kernel)
             for i in range(a.shape[0])]
     return [np.stack([np.asarray(o[k]) for o in outs]) for k in range(3)]
 
@@ -115,8 +118,8 @@ def _ref_merge_rows(a, b, pa, pb, keep, da, db, perm):
 MERGE_CASES = ["overflow", "all_ties", "inf_runs", "perm_b", "short_a"]
 
 
-@pytest.mark.parametrize("case", MERGE_CASES)
-def test_merge_sorted_topk_bit_identical_to_reference(case):
+def _merge_case(case):
+    """Runs, payloads and drop values of one merge case (numpy)."""
     rng = np.random.default_rng(MERGE_CASES.index(case))
     rows, na, nb, keep, w = 3, 12, 10, 9, 4
     if case == "short_a":
@@ -136,25 +139,32 @@ def test_merge_sorted_topk_bit_identical_to_reference(case):
     if case == "perm_b":
         b = np.stack([np.sort(r, kind="stable") for r in b_raw])
         perm = np.stack([np.argsort(r, kind="stable") for r in b_raw])
-        want = _ref_merge_rows(a, b, pa, pb, keep, da, db, perm)
-        got = merge_sorted_topk(torch.as_tensor(a), torch.as_tensor(b),
-                                torch.as_tensor(pa), torch.as_tensor(pb),
-                                keep, drop_a=torch.as_tensor(da),
-                                drop_b=torch.as_tensor(db),
-                                perm_b=torch.as_tensor(perm))
-    else:
-        order = np.argsort(b_raw, axis=1, kind="stable")
-        b = np.take_along_axis(b_raw, order, 1)
-        pbs = np.take_along_axis(pb, order[..., None], 1)
-        dbs = np.take_along_axis(db, order, 1)
-        want = _ref_merge_rows(a, b, pa, pbs, keep, da, dbs, None)
-        got = merge_sorted_topk(torch.as_tensor(a), torch.as_tensor(b),
-                                torch.as_tensor(pa), torch.as_tensor(pbs),
-                                keep, drop_a=torch.as_tensor(da),
-                                drop_b=torch.as_tensor(dbs))
+        return a, b, pa, pb, keep, da, db, perm
+    order = np.argsort(b_raw, axis=1, kind="stable")
+    return (a, np.take_along_axis(b_raw, order, 1), pa,
+            np.take_along_axis(pb, order[..., None], 1), keep, da,
+            np.take_along_axis(db, order, 1), None)
+
+
+def _port_merge(a, b, pa, pb, keep, da, db, perm, use_kernel=False):
+    T = torch.as_tensor
+    return merge_sorted_topk(T(a), T(b), T(pa), T(pb), keep, drop_a=T(da),
+                             drop_b=T(db),
+                             perm_b=None if perm is None else T(perm),
+                             use_kernel=use_kernel)
+
+
+def _assert_bit_equal(got, want):
     for g, wnt in zip(got, want):
         g = g.numpy()
         assert g.dtype == wnt.dtype and g.tobytes() == wnt.tobytes()
+
+
+@pytest.mark.parametrize("case", MERGE_CASES)
+def test_merge_sorted_topk_bit_identical_to_reference(case):
+    args = _merge_case(case)
+    want = _ref_merge_rows(*args)
+    _assert_bit_equal(_port_merge(*args), want)
     if case == "overflow":
         assert np.isfinite(want[2]).all()       # something was dropped
 
@@ -177,10 +187,22 @@ def test_sort_by_key_is_stable_like_reference():
             assert np.array_equal(got_p[k][r].numpy(), np.asarray(want_p[k]))
 
 
-def test_merge_kernel_path_is_not_ported_yet():
-    z = torch.zeros(1, 2)
-    with pytest.raises(NotImplementedError, match="merge_ranks"):
-        merge_sorted_topk(z, z, z, z, 2, use_kernel=True)
+@pytest.mark.parametrize("case", ["overflow", "all_ties", "inf_runs"])
+def test_merge_kernel_path_bit_identical_to_unfused_and_reference(case):
+    """``use_kernel=True`` (rank counts from the merge-ranks kernel's
+    wrapper) equals the unfused merge and the reference's kernel merge."""
+    args = _merge_case(case)
+    got = _port_merge(*args, use_kernel=True)
+    _assert_bit_equal(got, [x.numpy() for x in _port_merge(*args)])
+    _assert_bit_equal(got, _ref_merge_rows(*args, use_kernel=True))
+    # leading axes beyond one pair axis flatten through the kernel
+    a, b, pa, pb, keep, da, db, _ = args
+    T = torch.as_tensor
+    lead2 = merge_sorted_topk(T(a)[None], T(b)[None], T(pa)[None],
+                              T(pb)[None], keep, drop_a=T(da)[None],
+                              drop_b=T(db)[None], use_kernel=True)
+    for x, y in zip(lead2, got):
+        assert torch.equal(x[0], y)
 
 
 # ------------------------------------------------------------------- engine
@@ -242,11 +264,44 @@ def test_engine_result_does_not_depend_on_batch_mates(batches):
 
 
 def test_engine_config_validation_and_merge_dispatch():
-    with pytest.raises(ValueError, match="use_kernel"):
-        EngineConfig(use_kernel="auto")
+    """``use_kernel`` takes True, False and "auto" (anything else raises),
+    and a pinned ``merge_fused`` dispatch runs with the unfused outcome."""
+    for bad in ("fast", 1.5, None):
+        with pytest.raises(ValueError, match="use_kernel"):
+            EngineConfig(use_kernel=bad)
+    assert EngineConfig(use_kernel="auto").use_kernel == "auto"
     packed = pack_pairs([(Graph([0, 1], [[0, 1], [1, 0]]),
                           Graph([0, 2], [[0, 1], [1, 0]]))])
-    cfg = EngineConfig(pool=8, expand=2, max_iters=4,
-                       dispatch=KernelDispatch(merge_fused=True))
-    with pytest.raises(NotImplementedError, match="merge_ranks"):
-        dispatch_packed(packed, [0.0], cfg, False, device="cpu")
+    base = dict(pool=8, expand=2, max_iters=4)
+    fused = dispatch_packed(packed, [0.0], EngineConfig(
+        dispatch=KernelDispatch(merge_fused=True), **base), False,
+        device="cpu")
+    plain = dispatch_packed(packed, [0.0], EngineConfig(use_kernel=False,
+                                                        **base),
+                            False, device="cpu")
+    assert fused["ged"].tolist() == [1.0]
+    for k in plain:
+        assert torch.equal(fused[k], plain[k]), k
+
+
+@pytest.mark.parametrize("strategy", ["astar", "dfs"])
+@pytest.mark.parametrize("verification", [False, True])
+def test_engine_with_fused_merge_equals_reference(batches, strategy,
+                                                  verification):
+    """Every family fused, the merge included: the output dict equals the
+    reference's ``_run_batch`` under the same dispatch, bit for bit."""
+    packed, taus = batches[8]
+    kw = dict(pool=32, expand=4, max_iters=40, strategy=strategy,
+              use_kernel="auto")
+    fields = dict(lsa_fused=True, bma_fused=True, merge_fused=True)
+    want = {k: np.asarray(v) for k, v in ref_dispatch(
+        packed, taus, RefConfig(dispatch=RefDispatch(**fields), **kw),
+        verification).items()}
+    got = {k: v.numpy() for k, v in dispatch_packed(
+        from_reference(packed), taus,
+        EngineConfig(dispatch=KernelDispatch(**fields), **kw), verification,
+        device="cpu").items()}
+    assert set(got) == set(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        assert np.array_equal(got[k], want[k]), (k, got[k], want[k])

@@ -1,5 +1,6 @@
 """The port's ``repro_torch.ged`` facade: import hygiene, device rules,
-backend policy, and outcomes against the reference ``repro.ged``.
+backend policy (``"auto"`` the default, unported options refused), and
+outcomes against the reference ``repro.ged``.
 
 Outcomes are held to the reference's ``"jax"`` backend on the same pairs:
 ``ged``, ``similar``, ``certified``, ``lower_bound``, ``upper_bound``,
@@ -83,7 +84,11 @@ def test_port_sources_have_no_jax_or_reference_imports():
         r"from\s+repro(\.|\s+import))")
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    names = {str(f.relative_to(ROOT)) for f in files}
+    assert {"src/repro_torch/core/exact/search.py",
+            "src/repro_torch/runtime/scheduler.py",
+            "src/repro_torch/store_io/atomic.py",
+            "src/repro_torch/kernels/autotune.py"} <= names
     offenders = [f"{f.name}:{i}: {line.strip()}"
                  for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -98,6 +103,7 @@ def test_default_device_is_the_card_and_never_silently_the_cpu(monkeypatch):
     pairs = _workload(0, 1, 3, 4)
     for call in (lambda: ged.GedEngine(),
                  lambda: ged.GedEngine("torch"),
+                 lambda: ged.verify(pairs, 1.0),
                  lambda: ged.compute(pairs),
                  lambda: ged.verify(pairs, 1.0, backend="torch"),
                  lambda: Executor(),
@@ -114,14 +120,43 @@ def _graphs(pairs):
 
 # ---------------------------------------------------------- backend policy
 
-@pytest.mark.parametrize("name", ["auto", "exact", "sharded"])
+@pytest.mark.parametrize("name", ["sharded"])
 def test_unported_backends_point_at_the_roadmap(name):
     with pytest.raises(ValueError, match="ROADMAP.md"):
         ged.GedEngine(name, device="cpu")
 
 
+@pytest.mark.parametrize("name", ["auto", "exact"])
+def test_auto_and_exact_backends_work_and_auto_is_the_default(name):
+    """Both answer, certified, with the host solver's distances; a bare
+    ``compute`` / ``verify`` / ``GedEngine`` is the ``"auto"`` backend."""
+    pairs = _workload(2, 4, 3, 7)
+    exact = ref_ged.GedEngine("exact", cache=False).compute(pairs)
+    outs = ged.GedEngine(name, device="cpu").compute(pairs)
+    assert [o.ged for o in outs] == [o.ged for o in exact]
+    assert all(o.certified for o in outs)
+    assert {o.backend for o in outs} <= {name, "auto/exact"}
+    default = ged.compute(pairs, device="cpu")
+    assert {o.backend for o in default} <= {"auto", "auto/exact"}
+    assert [o.ged for o in default] == [o.ged for o in exact]
+    assert ged.GedEngine(device="cpu").backend == "auto"
+    assert [o.similar for o in ged.verify(pairs, 2.0, device="cpu")] == \
+        [o.ged <= 2.0 for o in exact]
+
+
+@pytest.mark.parametrize("option", [
+    "cache", "shared_cache_dir", "deadline_s", "retry", "fault_inject",
+    "digest", "mesh"])
+def test_unported_options_raise_type_error(option):
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        ged.GedEngine(device="cpu", **{option: None})
+    eng = ged.GedEngine("torch", device="cpu", **SMALL)
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        eng.compute(_workload(1, 1, 3, 4), **{option: None})
+
+
 def test_backend_registry_and_unknown_names():
-    assert ged.available_backends() == ("cuda", "torch")
+    assert ged.available_backends() == ("auto", "cuda", "exact", "torch")
     with pytest.raises(ValueError, match="unknown backend"):
         ged.GedEngine("pallas", device="cpu")
     with pytest.raises(TypeError, match="unknown GedEngine options"):

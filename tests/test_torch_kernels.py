@@ -6,6 +6,7 @@ the per-state bound functions) and the port (``repro_torch``).  Tolerances:
 
 * kernel twins vs reference kernels: exact (``np.array_equal``) — every
   term is a small integer or half, or a min/argmin;
+* merge ranks vs the Pallas merge kernel: exact — integer counts;
 * auction and forced bounds: exact where |value| < 2**20, ``rtol=1e-6``
   above.  Prices inflate to ~BIG = 1e7 (the f32 ulp there is 1.0), so sums
   that carry them may round differently if a backend reorders them.
@@ -29,6 +30,7 @@ from repro.data.graphs import perturb, random_graph  # noqa: E402
 from repro.kernels import ops as ref_ops  # noqa: E402
 from repro.kernels import ref as ref_ref  # noqa: E402
 from repro.kernels.lsa_children import lsa_children_pallas  # noqa: E402
+from repro.kernels.merge_topk import merge_ranks_pallas  # noqa: E402
 from repro.kernels.reduced_top2 import reduced_top2_pallas  # noqa: E402
 
 from repro_torch.core.engine import auction as auc  # noqa: E402
@@ -190,6 +192,59 @@ def test_merge_ranks_and_hist_intersect_twins(na, nb):
                                               jnp.asarray(hg))))
 
 
+def _merge_keys(rng, b, na, nb, kind):
+    """Merge-rank inputs: sorted runs, unsorted runs, all ties, or runs
+    full of +inf, the engine's INF = 3e8 and signed zeros."""
+    a = rng.integers(0, 8, (b, na)).astype(np.float32)
+    k = rng.integers(0, 8, (b, nb)).astype(np.float32)
+    if kind == "sorted":
+        a, k = np.sort(a, axis=1), np.sort(k, axis=1)
+    elif kind == "ties":
+        a[:], k[:] = 3.0, 3.0
+    elif kind == "inf_big":
+        for x in (a, k):
+            x[:, ::3] = np.inf
+            x[:, 1::3] = 3.0e8
+            x[:, 2::5] = -0.0
+        a[:, 4::7] = 0.0
+    return a, k
+
+
+MERGE_SHAPES = [(12, 8), (28, 16), (60, 64), (12, 64), (60, 8)]
+
+
+@pytest.mark.parametrize("na,nb", MERGE_SHAPES)
+@pytest.mark.parametrize("kind", ["sorted", "unsorted", "ties", "inf_big"])
+def test_merge_ranks_matches_reference_kernel(na, nb, kind):
+    """Rung-like (pool - expand, expand x slots) shapes, NB above and below
+    NA: the wrapper equals the Pallas kernel and its oracle exactly."""
+    rng = np.random.default_rng(na * 1000 + nb)
+    a, k = _merge_keys(rng, 3, na, nb, kind)
+    got = kops.merge_ranks(T(a), T(k))
+    for want in (merge_ranks_pallas(jnp.asarray(a), jnp.asarray(k),
+                                    interpret=True),
+                 ref_ref.merge_ranks_ref(jnp.asarray(a), jnp.asarray(k))):
+        for g, w in zip(got, want):
+            assert g.dtype == torch.int32
+            assert np.array_equal(_np(g), np.asarray(w))
+    if kind == "ties":
+        assert (_np(got[0]) == 0).all() and (_np(got[1]) == na).all()
+
+
+def test_merge_ranks_unbatched_and_empty_runs():
+    rng = np.random.default_rng(4)
+    a, k = _merge_keys(rng, 1, 28, 16, "inf_big")
+    want = merge_ranks_pallas(jnp.asarray(a), jnp.asarray(k), interpret=True)
+    got = kops.merge_ranks(T(a[0]), T(k[0]))
+    for g, w in zip(got, want):
+        assert g.shape == (w.shape[1],)
+        assert np.array_equal(_np(g), np.asarray(w)[0])
+    ca, cb = kops.merge_ranks(torch.zeros(2, 0), T(k[:, :5].repeat(2, 0)))
+    assert ca.shape == (2, 0) and _np(cb).tolist() == [[0] * 5] * 2
+    ca, cb = kops.merge_ranks(torch.zeros(0, 4), torch.zeros(0, 3))
+    assert ca.shape == (0, 4) and cb.shape == (0, 3)
+
+
 def test_cpu_wrappers_use_twins_and_count_no_launches():
     kops.reset_launch_counts()
     rng = np.random.default_rng(0)
@@ -197,8 +252,9 @@ def test_cpu_wrappers_use_twins_and_count_no_launches():
                       T(rng.random((2, 4), np.float32)))
     kops.bma_cost_matrix(*(T(a) for a in _bma_inputs(rng, 1, 4, 2)))
     kops.lsa_children(*(T(a) for a in _lsa_inputs(rng, 1, 4, 2)))
+    kops.merge_ranks(*(T(a) for a in _merge_keys(rng, 2, 6, 4, "sorted")))
     assert kops.launch_counts() == {"reduced_top2": 0, "bma_cost_matrix": 0,
-                                    "lsa_children": 0}
+                                    "lsa_children": 0, "merge_ranks": 0}
 
 
 def test_kernel_build_is_lazy_and_content_addressed():
