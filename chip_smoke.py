@@ -26,7 +26,13 @@ Phases (each failure raises; nothing falls back to the CPU):
    rung's (pool - expand, expand x slots) shape at N = 32 and 64, on
    sorted, unsorted and tied/+inf/3e8 runs (``torch.equal``), timed at each
    shape beside its bound and the two ``torch.searchsorted`` calls it
-   replaces;
+   replaces; on a batch whose rows mix sorted runs (signed zeros, +inf/3e8
+   tails), unsorted runs and NaN-tailed runs (timed at rung 1, N = 32);
+   and with one run of 20,000 keys, longer than the kernel stages in
+   shared memory; ``reduced_top2`` at N = 16, 32 and 64 (B = 2048) and at
+   the ``"auto"`` path's rung-0 state counts (512 x 32, 128 x 64), timed
+   beside ``torch.topk``, and untimed at N = 1, 2, 31, 33, 128 and 300,
+   each also from a misaligned (offset) buffer;
 6. ``autotune.tune()`` on the card at the shapes the ``"auto"`` path meets,
    into a temporary tuning table;
 7. the ``"auto"`` path: 256 AIDS-like pairs plus 64 pairs at n 40-60 (slot
@@ -199,8 +205,9 @@ def check_kernel(name, kernel, twin, args, out_like, ops, library=None,
             bad = (g != w).nonzero()[:5].tolist()
             raise AssertionError(f"{name}: kernel differs from its twin at "
                                  f"{bad}")
-        err = max(err, float((g.double() - w.double()).abs().max())
-                  if g.numel() else 0.0)
+        # equal infinities count as no error (inf - inf is NaN)
+        diff = torch.where(g == w, 0.0, (g.double() - w.double()).abs())
+        err = max(err, float(diff.max()) if g.numel() else 0.0)
     row = {"equal": True, "max_abs_err": err,
            "out_shape": [list(g.shape) for g in got]}
     if timed:
@@ -305,6 +312,125 @@ def merge_checks(device):
                         {k: v for k, v in row.items()
                          if k not in ("bytes", "ops")}))
     return rows
+
+
+def mixed_merge_keys(b, na, nb, device, seed):
+    """Merge-rank runs whose rows mix kinds, by row index mod 6: both
+    sorted; both unsorted; sorted with signed zeros in either order and
+    +inf/3e8 tails; only keys_a sorted; only keys_b sorted; sorted with a
+    NaN tail (a NaN makes a run unsorted for the kernel)."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pool = torch.tensor([-1.0, -0.0, 0.0, 1.0, 2.0, 5.0, 3.0e8,
+                         float("inf")])
+    a = torch.randint(0, 4 * (na + nb), (b, na), generator=g).float()
+    k = torch.randint(0, 4 * (na + nb), (b, nb), generator=g).float()
+    a[2::6] = pool[torch.randint(0, len(pool), (len(a[2::6]), na),
+                                 generator=g)]
+    k[2::6] = pool[torch.randint(0, len(pool), (len(k[2::6]), nb),
+                                 generator=g)]
+    sa, sk = a.sort(1).values, k.sort(1).values
+    kind = torch.arange(b) % 6
+    a = torch.where((kind != 1)[:, None] & (kind != 4)[:, None], sa, a)
+    k = torch.where((kind != 1)[:, None] & (kind != 3)[:, None], sk, k)
+    if na:
+        a[5::6, -1] = float("nan")
+    if nb:
+        k[5::6, -1] = float("nan")
+    return a.to(device), k.to(device)
+
+
+def merge_extra_checks(device):
+    """``merge_ranks`` on mixed rows at rung 1, N = 32 (timed), and with
+    one run of 20,000 keys (beyond what the kernel stages in shared
+    memory), on sorted, unsorted and mixed rows.  Returns the largest
+    ``max_abs_err``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    pool, expand, _ = RUNGS[1]
+    na, nb = pool - expand, expand * 32
+    a, b = mixed_merge_keys(PAIRS, na, nb, device, seed=1)
+    row = check_kernel(
+        "merge_ranks", kops.merge_ranks, ref.merge_ranks_ref, [a, b], [a, b],
+        ops=PAIRS * (na + nb), library=lambda: (
+            torch.searchsorted(b, a, side="left"),
+            torch.searchsorted(a, b, side="right")), timed=True)
+    log(f"[kernel] merge_ranks rung=1 N=32 B={PAIRS} NA={na} NB={nb} mixed: "
+        + json.dumps({k: v for k, v in row.items()
+                      if k not in ("bytes", "ops")}))
+    err = row["max_abs_err"]
+    for na, nb in ((20000, 256), (256, 20000)):
+        for kind in ("sorted", "unsorted", "mixed"):
+            if kind == "mixed":
+                a, b = mixed_merge_keys(12, na, nb, device, seed=2)
+            else:
+                a, b = merge_keys(12, na, nb, kind, device, seed=3)
+            r = check_kernel("merge_ranks", kops.merge_ranks,
+                             ref.merge_ranks_ref, [a, b], [a, b], ops=0,
+                             timed=False)
+            err = max(err, r["max_abs_err"])
+            log(f"[kernel] merge_ranks B=12 NA={na} NB={nb} {kind}: "
+                f"equal={r['equal']}")
+    return err
+
+
+# reduced_top2 shapes timed beside the main check: N = 16, 32, 64 at the
+# main path's 2048 states, and the "auto" path's rung-0 state counts
+TOP2_SHAPES = ((2048, 16), (2048, 32), (2048, 64), (512, 32), (128, 64))
+
+
+def top2_inputs(b, n, device, seed, offset=0):
+    """Auction-like reduced costs: half-integer costs full of ties, a grid
+    of 1e7 entries, all-+inf rows, half-integer prices.  With ``offset``
+    the cost and prices start ``offset`` floats into a buffer, so they are
+    not 16-byte aligned."""
+    import torch
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cost = torch.randint(0, 6, (b, n, n), generator=g).float() * 0.5
+    cost[:, ::7, ::3] = 1.0e7
+    cost[::5, 0, :] = float("inf")
+    prices = torch.randint(0, 4, (b, n), generator=g).float() * 0.5
+    out = []
+    for x in (cost, prices):
+        buf = torch.empty(x.numel() + offset, device=device)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        out.append(view)
+    return out
+
+
+def top2_checks(device):
+    """``reduced_top2`` against its twin at ``TOP2_SHAPES`` (timed beside
+    ``torch.topk``) and at odd widths, aligned and offset (untimed).
+    Returns the largest ``max_abs_err``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    err = 0.0
+    for b, n in TOP2_SHAPES:
+        cost, prices = top2_inputs(b, n, device, seed=b + n)
+        red = cost + prices[:, None, :]
+        vec = torch.empty((b, n), device=device)
+        row = check_kernel(
+            "reduced_top2", kops.reduced_top2, ref.reduced_top2_ref,
+            [cost, prices], [vec, vec, vec], ops=3 * b * n * n,
+            library=lambda red=red: torch.topk(red, 2, dim=-1,
+                                               largest=False),
+            timed=True)
+        err = max(err, row["max_abs_err"])
+        log(f"[kernel] reduced_top2 B={b} N={n}: " + json.dumps(
+            {k: v for k, v in row.items() if k not in ("bytes", "ops")}))
+    for n in (1, 2, 31, 33, 128, 300):
+        for offset in (0, 1):
+            cost, prices = top2_inputs(37, n, device, seed=n, offset=offset)
+            r = check_kernel("reduced_top2", kops.reduced_top2,
+                             ref.reduced_top2_ref, [cost, prices], [], ops=0,
+                             timed=False)
+            err = max(err, r["max_abs_err"])
+            log(f"[kernel] reduced_top2 B=37 N={n} offset={offset}: "
+                f"equal={r['equal']}")
+    return err
 
 
 def tune_phase(tune_dir, device):
@@ -625,7 +751,9 @@ def main(argv) -> int:
                 f"out_shape={row['out_shape']}")
     merge_rows = merge_checks(dev)
     checks["merge_ranks"] = merge_rows[(1, 32)]      # rung 1, N = 32
-    errs["merge_ranks"] = max(r["max_abs_err"] for r in merge_rows.values())
+    errs["merge_ranks"] = max([merge_extra_checks(dev)] + [
+        r["max_abs_err"] for r in merge_rows.values()])
+    errs["reduced_top2"] = max(errs["reduced_top2"], top2_checks(dev))
     if "--kernels-only" in argv:
         log(f"[device] {smi}")
         log(json.dumps({"ok": True, "device": {

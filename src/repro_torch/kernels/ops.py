@@ -170,6 +170,11 @@ def merge_ranks(keys_a: torch.Tensor, keys_b: torch.Tensor):
     ``count_b[b, j] = #{i : keys_a[b, i] <= keys_b[b, j]}``: plain
     comparison counts, which equal the searchsorted left/right ranks when
     the runs are sorted.  Batched ``(B, NA)`` / ``(B, NB)`` or unbatched.
+
+    The card kernel decides per pair, on the device, whether each run is
+    sorted: it binary-searches a sorted run and counts over an unsorted
+    one, in the same launch, so it equals the twin on any input.  Nothing
+    here tests sortedness on the host (that would sync every iteration).
     """
     unbatched = keys_a.ndim == 1
     if unbatched:

@@ -241,3 +241,98 @@ def test_auto_card_outcomes_equal_cpu_outcomes(card, verification):
                 a.upper_bound, a.backend, a.stats["rung"]) == \
             (b.ged, b.similar, b.certified, b.lower_bound, b.upper_bound,
              b.backend, b.stats["rung"])
+
+
+def _top2_operands(b, n, device, seed, offset=0):
+    """Reduced-cost operands with ties everywhere (costs in {0, 1, 2}):
+    tied minima straddle every lane boundary (columns 7/8, 15/16, 31/32,
+    63/64 share the row minimum) and consecutive rows are copies, so ties
+    also straddle row groups; plus all-+inf rows and 1e7 entries.  With
+    ``offset`` both start that many floats into a buffer (not 16-byte
+    aligned)."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    cost = torch.randint(0, 3, (b, n, n), generator=g).float()
+    for j in (7, 15, 31, 63):
+        if j + 1 < n:
+            cost[:, 1::3, j:j + 2] = -1.0
+    cost[:, 2::3] = cost[:, 1::3][:, : cost[:, 2::3].shape[1]]
+    cost[::4, 0] = float("inf")
+    cost[1::4, ::5, ::2] = 1.0e7
+    prices = torch.randint(0, 2, (b, n), generator=g).float()
+    prices[::3] = 0.0
+    out = []
+    for x in (cost, prices):
+        buf = torch.empty(x.numel() + offset, device=device)
+        view = buf[offset:].view(x.shape)
+        view.copy_(x)
+        out.append(view)
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 2, 16, 31, 33, 64, 128])
+@pytest.mark.parametrize("b", [1, 37])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_reduced_top2_single_pass_equals_its_twin(card, n, b, offset):
+    """Every width class of the one-pass kernel (several states per warp,
+    one state per warp, states shared among warps), float4 and scalar
+    loads, B not a multiple of the rows a block takes; one launch."""
+    cost, prices = _top2_operands(b, n, card, seed=n * 10 + b, offset=offset)
+    assert cost.is_contiguous() and cost.data_ptr() % 16 == 4 * offset
+    kops.reset_launch_counts()
+    got = kops.reduced_top2(cost, prices)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["reduced_top2"] == 1
+    for x, y in zip(got, ref.reduced_top2_ref(cost, prices)):
+        assert torch.equal(x, y)
+
+
+def _mixed_runs(b, na, nb, seed):
+    """Rows by index mod 6: both runs sorted; both unsorted; sorted with
+    signed zeros in either order and +inf/3e8 tails; only keys_a sorted;
+    only keys_b sorted; sorted with a NaN tail."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pool = torch.tensor([-2.0, -0.0, 0.0, 1.0, 4.0, 3.0e8, float("inf")])
+    a = torch.randint(0, 64, (b, na), generator=g).float()
+    k = torch.randint(0, 64, (b, nb), generator=g).float()
+    a[2::6] = pool[torch.randint(0, len(pool), a[2::6].shape, generator=g)]
+    k[2::6] = pool[torch.randint(0, len(pool), k[2::6].shape, generator=g)]
+    kind = (torch.arange(b) % 6)[:, None]
+    a = torch.where((kind != 1) & (kind != 4), a.sort(1).values, a)
+    k = torch.where((kind != 1) & (kind != 3), k.sort(1).values, k)
+    a[5::6, -1] = float("nan")
+    k[5::6, -1] = float("nan")
+    return a, k
+
+
+@pytest.mark.parametrize("na,nb", [(1016, 256), (4088, 512), (100, 700),
+                                   (20000, 256), (256, 20000)])
+def test_merge_ranks_mixed_rows_equal_its_twin(card, na, nb):
+    """One batch mixes rows the kernel binary-searches with rows it counts;
+    NA or NB = 20,000 is longer than the kernel stages in shared memory."""
+    a, b = (x.to(card) for x in _mixed_runs(24, na, nb, seed=na + nb))
+    kops.reset_launch_counts()
+    got = kops.merge_ranks(a, b)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["merge_ranks"] == 1
+    for x, y in zip(got, ref.merge_ranks_ref(a, b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("na,nb", [(1016, 256), (20000, 256), (256, 20000)])
+def test_merge_ranks_sorted_signed_zeros_equal_its_twin(card, na, nb):
+    """NaN-free sorted runs of few distinct keys: -0.0 and 0.0 in either
+    order inside one run, long ties, +inf and 3e8 tails; the binary search
+    must give the comparison counts exactly."""
+    g = torch.Generator(device="cpu").manual_seed(na * 3 + nb)
+    pool = torch.tensor([-1.0, -0.0, 0.0, 2.0, 3.0e8, float("inf")])
+    a = pool[torch.randint(0, len(pool), (9, na), generator=g)].sort(1).values
+    b = pool[torch.randint(0, len(pool), (9, nb), generator=g)].sort(1).values
+    zeros = a == 0
+    assert (zeros & a.signbit()).any() and (zeros & ~a.signbit()).any()
+    a, b = a.to(card), b.to(card)
+    kops.reset_launch_counts()
+    got = kops.merge_ranks(a, b)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["merge_ranks"] == 1
+    for x, y in zip(got, ref.merge_ranks_ref(a, b)):
+        assert torch.equal(x, y)

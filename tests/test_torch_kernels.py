@@ -138,6 +138,57 @@ def test_reduced_top2_twin_ties_and_big_entries():
     assert ties.any()
 
 
+def _assert_top2_matches_pallas(cost, prices):
+    want = reduced_top2_pallas(jnp.asarray(cost), jnp.asarray(prices),
+                               interpret=True)
+    got = kops.reduced_top2(T(cost), T(prices))
+    for g, w in zip(got, want):
+        assert g.dtype == (torch.int32 if w.dtype == jnp.int32
+                           else torch.float32)
+        assert np.array_equal(_np(g), np.asarray(w))
+    return got
+
+
+@pytest.mark.parametrize("n", [8, 16, 128])
+def test_reduced_top2_matches_pallas_at_each_width(n):
+    """Widths the card kernel lays out differently (several rows of a warp
+    per state, two lanes per row, sixteen lanes per row), with ties,
+    1e7 entries and +inf rows: exact against the Pallas kernel."""
+    rng = np.random.default_rng(n)
+    cost = rng.integers(0, 3, (5, n, n)).astype(np.float32)
+    cost[1, ::3, ::2] = 1e7
+    cost[2, 4] = np.inf
+    prices = rng.integers(0, 2, (5, n)).astype(np.float32)
+    _assert_top2_matches_pallas(cost, prices)
+
+
+def test_reduced_top2_all_inf_rows():
+    """A row of +inf reports column 0 and m2 = +inf, with finite or
+    infinite prices."""
+    cost = np.full((3, 32, 32), np.inf, np.float32)
+    cost[1, 5:] = 2.0
+    prices = np.zeros((3, 32), np.float32)
+    prices[2] = np.inf
+    m1, a1, m2 = _assert_top2_matches_pallas(cost, prices)
+    assert (_np(a1)[0] == 0).all() and np.isinf(_np(m2)[0]).all()
+
+
+@pytest.mark.parametrize("n,j", [(64, 31), (128, 31), (128, 63)])
+def test_reduced_top2_ties_across_lane_boundaries(n, j):
+    """The row minimum at columns j and j + 1 (31/32, 63/64: where lane
+    groups of the card kernel meet) and at the last column: the first
+    index wins and m2 == m1."""
+    rng = np.random.default_rng(n + j)
+    cost = (rng.integers(2, 6, (4, n, n)) * 0.5).astype(np.float32)
+    cost[:, :, j:j + 2] = 0.5
+    cost[:, :, n - 1] = 0.5
+    cost[1, 3, j] = 0.75
+    prices = np.zeros((4, n), np.float32)
+    m1, a1, m2 = _assert_top2_matches_pallas(cost, prices)
+    assert (_np(a1)[0] == j).all() and (_np(m2) == _np(m1)).all()
+    assert _np(a1)[1, 3] == j + 1
+
+
 def _lsa_inputs(rng, b, n, le):
     f32 = np.float32
     return (
@@ -229,6 +280,73 @@ def test_merge_ranks_matches_reference_kernel(na, nb, kind):
             assert np.array_equal(_np(g), np.asarray(w))
     if kind == "ties":
         assert (_np(got[0]) == 0).all() and (_np(got[1]) == na).all()
+
+
+def _mixed_merge_runs(rng, b, na, nb):
+    """Rows by index mod 6: both runs sorted; both unsorted; sorted with
+    signed zeros, +inf and 3e8; only keys_a sorted; only keys_b sorted;
+    sorted with a NaN tail (unsorted for the card kernel's test)."""
+    pool = np.array([-2.0, -0.0, 0.0, 1.0, 3.0e8, np.inf], np.float32)
+    a = rng.integers(0, 16, (b, na)).astype(np.float32)
+    k = rng.integers(0, 16, (b, nb)).astype(np.float32)
+    a[2::6] = rng.choice(pool, a[2::6].shape)
+    k[2::6] = rng.choice(pool, k[2::6].shape)
+    kind = (np.arange(b) % 6)[:, None]
+    a = np.where((kind != 1) & (kind != 4), np.sort(a, axis=1), a)
+    k = np.where((kind != 1) & (kind != 3), np.sort(k, axis=1), k)
+    a[5::6, -1] = np.nan
+    k[5::6, -1] = np.nan
+    return a, k
+
+
+@pytest.mark.parametrize("na,nb", [(28, 16), (60, 64), (130, 9)])
+def test_merge_ranks_mixed_sorted_and_unsorted_rows(na, nb):
+    """One batch whose rows the card kernel binary-searches or counts: the
+    wrapper equals the Pallas kernel exactly on every row."""
+    rng = np.random.default_rng(na + nb)
+    a, k = _mixed_merge_runs(rng, 12, na, nb)
+    want = merge_ranks_pallas(jnp.asarray(a), jnp.asarray(k), interpret=True)
+    for g, w in zip(kops.merge_ranks(T(a), T(k)), want):
+        assert g.dtype == torch.int32
+        assert np.array_equal(_np(g), np.asarray(w))
+
+
+@pytest.mark.parametrize("na,nb", [(12, 8), (60, 64), (250, 33)])
+def test_merge_ranks_sorted_signed_zeros_and_inf_tails(na, nb):
+    """Sorted runs (non-decreasing under IEEE <=) holding -0.0 and 0.0 in
+    both orders, ties, and +inf / 3e8 tails: exact against the Pallas
+    kernel, and equal to the searchsorted ranks a binary search gives."""
+    rng = np.random.default_rng(na * 7 + nb)
+
+    def runs(n):
+        # per row: a block of -1, a block of zeros whose signs alternate
+        # (-0.0 first in even rows, 0.0 first in odd rows), then 2.0, and
+        # a 3e8 / +inf tail
+        x = np.full((4, n), 2.0, np.float32)
+        for r in range(4):
+            lo = int(rng.integers(0, n // 4 + 1))
+            z = np.arange(max(3, n // 3))
+            x[r, :lo] = -1.0
+            x[r, lo:lo + len(z)] = np.where(z % 2 == r % 2, -0.0, 0.0)
+        x[:, -2:] = np.float32(3.0e8)
+        x[1:, -1] = np.inf
+        return x
+
+    a, k = runs(na), runs(nb)
+    for x in (a, k):
+        assert (x[:, :-1] <= x[:, 1:]).all()
+        pairs = np.signbit(x[:, :-1]).astype(int) - np.signbit(x[:, 1:])
+        zero = (x[:, :-1] == 0) & (x[:, 1:] == 0)
+        assert (pairs[zero] == 1).any() and (pairs[zero] == -1).any()
+    want = merge_ranks_pallas(jnp.asarray(a), jnp.asarray(k), interpret=True)
+    got = kops.merge_ranks(T(a), T(k))
+    for g, w in zip(got, want):
+        assert np.array_equal(_np(g), np.asarray(w))
+    for r in range(4):
+        assert np.array_equal(_np(got[0])[r],
+                              np.searchsorted(k[r], a[r], side="left"))
+        assert np.array_equal(_np(got[1])[r],
+                              np.searchsorted(a[r], k[r], side="right"))
 
 
 def test_merge_ranks_unbatched_and_empty_runs():
