@@ -13,9 +13,14 @@ Phases (each failure raises; nothing falls back to the CPU):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain PyTorch twin on the card, at the main
    path's shape (256 pairs x expand 8 = 2048 states, N = 32, Le = 3), on an
-   edgeless batch (Le = 0) and at N = 64: ``torch.equal``, kernel and twin
-   times (CUDA events, and device time from ``torch.profiler``), the
-   memory/compute bound;
+   edgeless batch (Le = 0), at N = 64 and at the ``"auto"`` path's rung-0
+   shapes (512 x 32, 128 x 64): ``torch.equal``, kernel and twin times
+   (CUDA events, and device time from ``torch.profiler``), the
+   memory/compute bound; for ``lsa_children`` and ``bma_cost_matrix`` at
+   every one of those shapes, also the time of the whole
+   ``bounds.lsa_children`` / ``bounds.bma_cost_matrix`` call that builds
+   their operands, and ``lsa_children``'s bound on the reference's
+   ``a_ju`` operand beside the one on its own;
 4. the main path: 256 AIDS-like pairs through ``GedEngine("cuda")`` and
    ``GedEngine("torch")`` (``compute`` and ``verify(tau=4)``, the second
    escalation rung's pool/expand/max_iters), outcomes compared field by
@@ -123,8 +128,8 @@ def edgeless_pairs(rng, count, n_lo, n_hi):
     return out
 
 
-def engine_states(pairs, slots, rng, device):
-    """Random search states (``EXPAND`` per pair) on packed pairs, built
+def engine_states(pairs, slots, rng, device, expand=EXPAND):
+    """Random search states (``expand`` per pair) on packed pairs, built
     with the engine's own ``make_pair_consts`` and ``state_masks``."""
     import torch
     from repro_torch.core.engine import bounds as eb
@@ -132,10 +137,10 @@ def engine_states(pairs, slots, rng, device):
     packed = pack_pairs(pairs, slots=slots)
     dp = to_device(packed, device)
     pc = eb.make_pair_consts(*dp).unsqueeze(1)
-    img = np.full((len(pairs), EXPAND, slots), -1, np.int32)
-    level = np.zeros((len(pairs), EXPAND), np.int32)
+    img = np.full((len(pairs), expand, slots), -1, np.int32)
+    level = np.zeros((len(pairs), expand), np.int32)
     for p, n in enumerate(packed.n):
-        for e in range(EXPAND):
+        for e in range(expand):
             level[p, e] = rng.integers(0, n)
             img[p, e, : level[p, e]] = rng.permutation(n)[: level[p, e]]
     img_t = torch.as_tensor(img, device=device)
@@ -231,15 +236,27 @@ def check_kernel(name, kernel, twin, args, out_like, ops, library=None,
     return row
 
 
-def kernel_checks(pairs, slots, rng, device, timed):
-    """All three kernels on engine states of ``pairs`` at ``slots``."""
+def engine_call_ms(fn):
+    """Event and device time of one whole engine call (operand building
+    and the kernel): {"engine_ms", "engine_device_ms"}."""
+    return {"engine_ms": cuda_ms(fn, reps=10),
+            "engine_device_ms": device_ms(fn, reps=10)}
+
+
+def kernel_checks(pairs, slots, rng, device, timed, expand=EXPAND,
+                  top2_timed=None):
+    """All three kernels on engine states of ``pairs`` at ``slots``.  When
+    ``timed``, ``lsa_children`` and ``bma_cost_matrix`` are timed alone and
+    as the whole ``bounds`` call that builds their operands
+    (``use_kernel=True``); ``reduced_top2`` when ``top2_timed`` (default:
+    ``timed``)."""
     import torch
     from repro_torch.core.engine import auction as auc
     from repro_torch.core.engine import bounds as eb
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import ref
 
-    pc, sm, level, g_cost = engine_states(pairs, slots, rng, device)
+    pc, sm, level, g_cost = engine_states(pairs, slots, rng, device, expand)
     rows = {}
 
     flat, _ = eb.lsa_kernel_operands(pc, sm, level, g_cost)
@@ -248,12 +265,29 @@ def kernel_checks(pairs, slots, rng, device, timed):
     rows["lsa_children"] = check_kernel(
         "lsa_children", kops.lsa_children, ref.lsa_children_ref, flat,
         [flat[0]], ops=b * n * (6 * le + 4 * n + 5), timed=timed)
+    if timed:
+        # the bound on the reference's 13 operands, with a (B, N, N) int32
+        # a_ju in place of the pair's ga and the state's img_cl: 6 (B, N),
+        # 3 (B, N, Le) and 3 (B, Le) 4-byte operands in, (B, N) f32 out
+        rows["lsa_children"]["bound_us_a_ju_operands"] = (
+            4 * b * (7 * n + 3 * n * le + 3 * le + n * n)
+            / PEAK_BYTES_PER_S * 1e6)
+        rows["lsa_children"].update(engine_call_ms(
+            lambda: eb.lsa_children(pc, sm, level, g_cost, use_kernel=True)))
 
     flat, _ = eb.bma_kernel_operands(pc, sm)
     lam_like = torch.empty((b, n, n), device=device)
+    # per element: the histogram terms (2 Le + 6) and the anchor count from
+    # label bit planes, per 32 positions one XOR/OR per plane, an AND with
+    # the anchor mask and a popcount
     rows["bma_cost_matrix"] = check_kernel(
         "bma_cost_matrix", kops.bma_cost_matrix, ref.bma_cost_matrix_ref,
-        flat, [lam_like], ops=b * n * n * (2 * le + 2 * n + 5), timed=timed)
+        flat, [lam_like],
+        ops=b * n * n * (2 * le + 6 + -(-n // 32) * (int(le).bit_length() + 2)),
+        timed=timed)
+    if timed:
+        rows["bma_cost_matrix"].update(engine_call_ms(
+            lambda: eb.bma_cost_matrix(pc, sm, use_kernel=True)))
 
     lam = eb.bma_cost_matrix(pc, sm, use_kernel=True).reshape(-1, n, n)
     prices = auc.run_auction(lam, 8).prices.contiguous()
@@ -263,7 +297,7 @@ def kernel_checks(pairs, slots, rng, device, timed):
         "reduced_top2", kops.reduced_top2, ref.reduced_top2_ref,
         [lam, prices], [vec, vec, vec], ops=3 * b * n * n,
         library=lambda: torch.topk(red, 2, dim=-1, largest=False),
-        timed=timed)
+        timed=timed if top2_timed is None else top2_timed)
     return rows
 
 
@@ -740,15 +774,24 @@ def main(argv) -> int:
             + json.dumps({k: v for k, v in row.items()
                           if k not in ("bytes", "ops")}))
     errs = {k: v["max_abs_err"] for k, v in checks.items()}
-    extra = [("Le=0", edgeless_pairs(np.random.default_rng(SEED + 2), 64, 6, 30), 32),
-             ("N=64", aids_pairs(np.random.default_rng(SEED + 3), PAIRS, 40, 60)[0], 64)]
-    for tag, ps, slots in extra:
+    # lsa_children and bma_cost_matrix timed at the other shapes the main
+    # and "auto" paths give them: N = 64 at the main path's 2048 states,
+    # the "auto" path's rung-0 buckets (128 pairs x 4 at slot 32, 32 pairs
+    # x 4 at slot 64), and an edgeless batch (Le = 0)
+    extra = [("N=64", aids_pairs(np.random.default_rng(SEED + 3), PAIRS, 40, 60)[0], 64, EXPAND),
+             ("rung0 N=32", aids_pairs(np.random.default_rng(SEED + 6), 128, 20, 30)[0], 32, 4),
+             ("rung0 N=64", aids_pairs(np.random.default_rng(SEED + 7), 32, 40, 60)[0], 64, 4),
+             ("Le=0", edgeless_pairs(np.random.default_rng(SEED + 2), 64, 6, 30), 32, EXPAND)]
+    for tag, ps, slots, expand in extra:
         rows = kernel_checks(ps, slots, np.random.default_rng(SEED + 4), dev,
-                             timed=False)
+                             timed=True, expand=expand, top2_timed=False)
         for name, row in rows.items():
             errs[name] = max(errs[name], row["max_abs_err"])
-            log(f"[kernel] {name} {tag}: equal={row['equal']} "
-                f"out_shape={row['out_shape']}")
+            shown = ({k: v for k, v in row.items() if k not in ("bytes", "ops")}
+                     if "kernel_ms" in row else
+                     {k: row[k] for k in ("equal", "out_shape")})
+            log(f"[kernel] {name} {tag} B={len(ps) * expand}: "
+                + json.dumps(shown))
     merge_rows = merge_checks(dev)
     checks["merge_ranks"] = merge_rows[(1, 32)]      # rung 1, N = 32
     errs["merge_ranks"] = max([merge_extra_checks(dev)] + [

@@ -37,7 +37,9 @@ def take(x: torch.Tensor, idx: torch.Tensor, dim: int) -> torch.Tensor:
 
 def hist(oh: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``einsum("...luw,...w->...ul", oh, w)``: per-row label histograms of
-    the columns weighted by ``w`` (exact: 0/1 sums in f32)."""
+    the columns weighted by ``w`` (exact: 0/1 sums in f32).  The result is
+    a transposed view, label-major in memory: the layout the kernels read,
+    so it reaches them uncopied."""
     return torch.matmul(oh, w[..., None, :, None])[..., 0].transpose(-1, -2)
 
 
@@ -167,11 +169,13 @@ def _vertex_ups(pc: PairConsts, sm: StateMasks, level: torch.Tensor
 
 def lsa_kernel_operands(pc: PairConsts, sm: StateMasks, level: torch.Tensor,
                         g_cost: torch.Tensor):
-    """The 13 operands of the ``lsa_children`` kernel, flattened to one
-    state axis, and the leading shape to restore.
+    """The 14 operands of the ``lsa_children`` kernel and the leading
+    shape to restore: the per-state ones flattened to one state axis, the
+    pair's ``ga`` to one pair axis.
 
     Pre-reduced histograms: (N, Le) contractions + row gathers; the
-    (N, N)-shaped accumulation loops stay inside the kernel.
+    (N, N)-shaped accumulation loops, and the gather of ``ga`` rows by
+    ``img_cl`` that feeds them, stay inside the kernel.
     """
     rowhist_g = hist(pc.oh_g, sm.free_g)                     # (..., N, Le)
     rowhist_q2 = hist(pc.oh_q, sm.free_q2)
@@ -184,17 +188,18 @@ def lsa_kernel_operands(pc: PairConsts, sm: StateMasks, level: torch.Tensor,
     inter_j = torch.minimum(cq, cg).sum(-1)
     base_j = torch.maximum(s1, s2) - inter_j
     adjb_j = torch.maximum(s1, s2 - 1.0) - inter_j
-    a_ju = take(pc.ga, sm.img_cl[..., None], -2)             # (..., N pos, N u)
     qrow = take(pc.qa_ord, sm.vi[..., None, None], -2)[..., 0, :]
     cq_vi = take(rowhist_q2, sm.vi[..., None, None], -2)[..., 0, :]
     dv = (take(pc.qv, sm.vi[..., None], -1) != pc.gv).float()
     base = g_cost[..., None] + dv + _vertex_ups(pc, sm, level)
     n, le = pc.qv.shape[-1], pc.n_elabels
-    return _flatten(
-        [base, sm.free_g, rowhist_g, a_ju, qrow, sm.pos_anch, cq, cg,
+    flat, lead = _flatten(
+        [base, sm.free_g, rowhist_g, sm.img_cl, qrow, sm.pos_anch, cq, cg,
          base_j, adjb_j, hq_i, hg_i, cq_vi],
-        [(n,), (n,), (n, le), (n, n), (n,), (n,), (n, le), (n, le),
+        [(n,), (n,), (n, le), (n,), (n,), (n,), (n, le), (n, le),
          (n,), (n,), (le,), (le,), (le,)])
+    (ga,) = _flatten_pairs([pc.ga], [(n, n)], lead)
+    return flat[:3] + [ga] + flat[3:], lead
 
 
 def lsa_children(pc: PairConsts, sm: StateMasks, level: torch.Tensor,

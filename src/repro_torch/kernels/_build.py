@@ -43,7 +43,7 @@ _C_INT = ctypes.c_int
 _SIGNATURES: Dict[str, tuple] = {
     "repro_reduced_top2": (_C_VOID_P,) * 5 + (_C_LL, _C_INT, _C_INT, _C_VOID_P),
     "repro_bma_cost_matrix": (_C_VOID_P,) * 9 + (_C_LL,) + (_C_INT,) * 4 + (_C_VOID_P,),
-    "repro_lsa_children": (_C_VOID_P,) * 14 + (_C_LL, _C_INT, _C_INT, _C_INT, _C_VOID_P),
+    "repro_lsa_children": (_C_VOID_P,) * 15 + (_C_LL,) + (_C_INT,) * 4 + (_C_VOID_P,),
     "repro_merge_ranks": (_C_VOID_P,) * 4 + (_C_LL, _C_INT, _C_INT, _C_INT, _C_VOID_P),
 }
 

@@ -107,7 +107,9 @@ def bma_cost_matrix(qv, gv, inner_q, inner_g, qa_ord, ga, img_cl, pos_anch):
     ``qa_ord`` and ``ga`` may carry ``P`` rows for the ``B`` rows of the
     per-state ones, ``B`` a multiple of ``P``: state ``s`` then reads pair
     row ``s // (B // P)``, so they are passed once per pair, not copied
-    to every state.
+    to every state.  The kernel reads the ``(N, Le)`` histograms
+    label-major: a ``transpose(-1, -2)`` view of a contiguous ``(Le, N)``
+    tensor, as ``bounds.py`` builds them, reaches it uncopied.
     """
     args = [qv, gv, inner_q, inner_g, qa_ord, ga, img_cl, pos_anch]
     unbatched = qv.ndim == 1
@@ -119,8 +121,9 @@ def bma_cost_matrix(qv, gv, inner_q, inner_g, qa_ord, ga, img_cl, pos_anch):
         p, n = args[0].shape
         b, le = args[2].shape[0], args[2].shape[-1]
         expand = ref.states_per_pair(p, b)
+        args[2], args[3] = args[2].transpose(1, 2), args[3].transpose(1, 2)
         ops = _checked("bma_cost_matrix", args, _BMA_NAMES,
-                       [(p, n), (p, n), (b, n, le), (b, n, le), (p, n, n),
+                       [(p, n), (p, n), (b, le, n), (b, le, n), (p, n, n),
                         (p, n, n), (b, n), (b, n)], _BMA_INT)
         out = torch.empty((b, n, n), dtype=torch.float32, device=qv.device)
         if b * n:
@@ -130,19 +133,26 @@ def bma_cost_matrix(qv, gv, inner_q, inner_g, qa_ord, ga, img_cl, pos_anch):
     return out[0] if unbatched else out
 
 
-_LSA_NAMES = ("base", "free_g", "rowhist_g", "a_ju", "qrow", "pos_anch", "cq",
-              "cg", "base_j", "adjb_j", "hq_i", "hg_i", "cq_vi")
-_LSA_INT = {"a_ju", "qrow"}
+_LSA_NAMES = ("base", "free_g", "rowhist_g", "ga", "img_cl", "qrow",
+              "pos_anch", "cq", "cg", "base_j", "adjb_j", "hq_i", "hg_i",
+              "cq_vi")
+_LSA_INT = {"ga", "img_cl", "qrow"}
 
 
-def lsa_children(base, free_g, rowhist_g, a_ju, qrow, pos_anch, cq, cg,
+def lsa_children(base, free_g, rowhist_g, ga, img_cl, qrow, pos_anch, cq, cg,
                  base_j, adjb_j, hq_i, hg_i, cq_vi):
     """Fused delta^LSa child-bound vector ``(B, N)``; batched or not.
 
     Operands are the pre-reduced histograms ``bounds.lsa_children``
-    extracts with (N, Le)-sized contractions and gathers.
+    extracts with (N, Le)-sized contractions and gathers, and the pair's
+    ``ga`` with the state's ``img_cl`` in place of the reference's
+    ``a_ju[b, j, u] = ga[b, img_cl[b, j], u]``: that gather happens inside
+    the kernel (and inside the plain twin).  ``ga`` may carry ``P`` rows
+    for the ``B`` state rows, ``B`` a multiple of ``P``: state ``s`` reads
+    pair row ``s // (B // P)``, and ``rowhist_g`` is read label-major,
+    both as in :func:`bma_cost_matrix`.
     """
-    args = [base, free_g, rowhist_g, a_ju, qrow, pos_anch, cq, cg,
+    args = [base, free_g, rowhist_g, ga, img_cl, qrow, pos_anch, cq, cg,
             base_j, adjb_j, hq_i, hg_i, cq_vi]
     unbatched = base.ndim == 1
     if unbatched:
@@ -151,15 +161,18 @@ def lsa_children(base, free_g, rowhist_g, a_ju, qrow, pos_anch, cq, cg,
         out = ref.lsa_children_ref(*args)
     else:
         b, n = args[0].shape
-        le = args[2].shape[-1]
+        p, le = args[3].shape[0], args[2].shape[-1]
+        expand = ref.states_per_pair(p, b)
+        args[2] = args[2].transpose(1, 2)
         ops = _checked("lsa_children", args, _LSA_NAMES,
-                       [(b, n), (b, n), (b, n, le), (b, n, n), (b, n), (b, n),
-                        (b, n, le), (b, n, le), (b, n), (b, n), (b, le),
-                        (b, le), (b, le)], _LSA_INT)
+                       [(b, n), (b, n), (b, le, n), (p, n, n), (b, n), (b, n),
+                        (b, n), (b, n, le), (b, n, le), (b, n), (b, n),
+                        (b, le), (b, le), (b, le)], _LSA_INT)
         out = torch.empty((b, n), dtype=torch.float32, device=base.device)
         if b * n:
             _launch("lsa_children", "repro_lsa_children", base.device,
-                    *(x.data_ptr() for x in ops), out.data_ptr(), b, n, le)
+                    *(x.data_ptr() for x in ops), out.data_ptr(), b, expand,
+                    n, le)
     return out[0] if unbatched else out
 
 

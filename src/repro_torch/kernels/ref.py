@@ -100,7 +100,8 @@ def lsa_children_ref(
     base: torch.Tensor,       # (B, N) f32 — g_cost + vertex-label terms per u
     free_g: torch.Tensor,     # (B, N) f32 — 1.0 where u is a free g vertex
     rowhist_g: torch.Tensor,  # (B, N, Le) f32 — free-neighbour edge hists of g
-    a_ju: torch.Tensor,       # (B, N, N) int32 — ga[img_j, u] (pos x u)
+    ga: torch.Tensor,         # (P, N, N) int32 — g adjacency, one row per pair
+    img_cl: torch.Tensor,     # (B, N) int — image of each order position, in [0, N)
     qrow: torch.Tensor,       # (B, N) int32 — qa_ord[v_i] (q edges of v_i by pos)
     pos_anch: torch.Tensor,   # (B, N) f32 — 1.0 where position j is anchored
     cq: torch.Tensor,         # (B, N, Le) f32 — anchored-q cross hists by pos
@@ -111,7 +112,17 @@ def lsa_children_ref(
     hg_i: torch.Tensor,       # (B, Le) f32 — free-inner edge hist of g
     cq_vi: torch.Tensor,      # (B, Le) f32 — v_i's free-neighbour edge hist
 ) -> torch.Tensor:
-    """delta^LSa child-bound vector (B, N): +BIG where u is not free."""
+    """delta^LSa child-bound vector (B, N): +BIG where u is not free.
+
+    Takes the pair's ``ga`` and the state's ``img_cl`` in place of the
+    reference's ``a_ju``; the gather ``a_ju[b, j, u] = ga[b, img_cl[b, j],
+    u]`` happens here, as it does inside the CUDA kernel.  ``ga`` carries
+    ``P`` rows, ``B`` a multiple of ``P``, as in :func:`bma_cost_matrix_ref`.
+    """
+    rep = states_per_pair(ga.shape[0], img_cl.shape[0])
+    if rep != 1:
+        ga = ga.repeat_interleave(rep, 0)
+    a_ju = torch.take_along_dim(ga, img_cl.long()[:, :, None], dim=1)
     # ---- inner edges: remove u's incident free edges from the g side ----
     hg_i_u = hg_i[:, None, :] - rowhist_g                    # (B, N u, Le)
     n_i1 = hq_i.sum(1)                                       # (B,)

@@ -69,7 +69,7 @@ def _states(pairs, slots, expand, rng, device):
 
 @pytest.mark.parametrize("slots,n_lo,n_hi,edges", [
     (8, 3, 8, True), (24, 10, 24, True), (32, 20, 30, True),
-    (16, 4, 16, False)])
+    (64, 40, 60, True), (16, 4, 16, False)])
 def test_kernels_equal_their_twins(card, slots, n_lo, n_hi, edges):
     """Engine-state operands, a slot count that is not a power of two,
     and an edgeless batch (Le = 0)."""
@@ -78,6 +78,7 @@ def test_kernels_equal_their_twins(card, slots, n_lo, n_hi, edges):
                                     slots, 4, rng, card)
     kops.reset_launch_counts()
     flat, _ = eb.lsa_kernel_operands(pc, sm, level, g_cost)
+    assert flat[3].shape[0] == 16 and flat[4].shape[0] == 64   # ga per pair
     assert torch.equal(kops.lsa_children(*flat), ref.lsa_children_ref(*flat))
     flat, _ = eb.bma_kernel_operands(pc, sm)
     assert flat[0].shape[0] == 16 and flat[2].shape[0] == 64  # per pair
@@ -91,6 +92,30 @@ def test_kernels_equal_their_twins(card, slots, n_lo, n_hi, edges):
     counts = kops.launch_counts()
     assert counts["lsa_children"] == 1 and counts["bma_cost_matrix"] == 1
     assert counts["reduced_top2"] == 7       # 6 auction sweeps + this call
+
+
+@pytest.mark.parametrize("slots,n_lo,n_hi", [(13, 5, 13), (32, 20, 30)])
+def test_kernels_read_label_major_and_contiguous_histograms(card, slots,
+                                                            n_lo, n_hi):
+    """The engine's histograms reach the kernels label-major and uncopied;
+    contiguous (N, Le) copies of them give the same results, one launch a
+    call either way."""
+    rng = np.random.default_rng(slots + 1)
+    pc, sm, level, g_cost = _states(_pairs(rng, 8, n_lo, n_hi), slots, 4,
+                                    rng, card)
+    lsa, _ = eb.lsa_kernel_operands(pc, sm, level, g_cost)
+    bma, _ = eb.bma_kernel_operands(pc, sm)
+    assert all(h.transpose(1, 2).is_contiguous()
+               for h in (lsa[2], bma[2], bma[3]))
+    want_lsa = ref.lsa_children_ref(*lsa)
+    want_bma = ref.bma_cost_matrix_ref(*bma)
+    for layout in (lambda x: x, lambda x: x.contiguous()):
+        kops.reset_launch_counts()
+        assert torch.equal(kops.lsa_children(*map(layout, lsa)), want_lsa)
+        assert torch.equal(kops.bma_cost_matrix(*map(layout, bma)), want_bma)
+        torch.cuda.synchronize()
+        counts = kops.launch_counts()
+        assert counts["lsa_children"] == 1 and counts["bma_cost_matrix"] == 1
 
 
 def test_kernels_at_a_large_slot_count(card):
@@ -111,7 +136,7 @@ def test_kernels_at_a_large_slot_count(card):
     assert torch.equal(kops.bma_cost_matrix(*bma_args),
                        ref.bma_cost_matrix_ref(*bma_args))
     lsa_args = [halves(9, b, n), ints(2, b, n).float(), halves(4, b, n, le),
-                ints(le + 1, b, n, n), ints(le + 1, b, n),
+                ints(le + 1, b, n, n), ints(n, b, n), ints(le + 1, b, n),
                 ints(2, b, n).float(), halves(4, b, n, le),
                 halves(4, b, n, le), halves(6, b, n), halves(6, b, n),
                 halves(8, b, le), halves(8, b, le), halves(4, b, le)]
@@ -143,6 +168,98 @@ def test_bma_cost_matrix_per_pair_operands_equal_copies(card):
                        kops.bma_cost_matrix(*copies))
     assert torch.equal(kops.bma_cost_matrix(*args),
                        ref.bma_cost_matrix_ref(*copies))
+
+
+def _bma_operands(g, pairs, expand, n, le, device, labels=None,
+                  pos=(0.0, 1.0)):
+    """bma_cost_matrix operands, per-pair rows for qv/gv/qa_ord/ga: edge
+    labels from ``labels`` (default 0..Le), pos_anch from ``pos``."""
+    lo, hi = labels or (0, le + 1)
+    b = pairs * expand
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g).to(torch.int32)
+
+    pa = torch.tensor(pos)[torch.randint(0, len(pos), (b, n), generator=g)]
+    args = [ints(0, 5, pairs, n), ints(0, 5, pairs, n),
+            ints(0, 6, b, n, le) * 0.5, ints(0, 6, b, n, le) * 0.5,
+            ints(lo, hi, pairs, n, n), ints(lo, hi, pairs, n, n),
+            ints(0, n, b, n), pa]
+    return [x.to(device) for x in args]
+
+
+BMA_GENERAL = {
+    # (pairs, expand, n, le, labels, pos_anch values)
+    "pos_anch_halves": (6, 8, 32, 3, None, (0.0, 0.5, 1.0)),
+    "pos_anch_two": (6, 8, 32, 3, None, (0.0, 1.0, 2.0)),
+    "negative_labels": (6, 8, 32, 3, (-2, 4), (0.0, 1.0)),
+    "labels_above_le": (6, 8, 64, 3, (0, 7), (0.0, 1.0)),
+    "above_mask_budget": (3, 4, 40, 8, None, (0.0, 1.0)),
+    "le0_labels_above": (6, 4, 24, 0, (0, 2), (0.0, 1.0)),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(BMA_GENERAL))
+def test_bma_cost_matrix_general_path_equals_its_twin(card, kind):
+    """Inputs the bitmask path cannot count exactly (pos_anch other than
+    0/1, labels outside 0..Le, (Le + 1) * ceil(N / 32) above the mask
+    budget): the blocks take the ordered loop inside the same single
+    launch and still equal the twin."""
+    pairs, expand, n, le, labels, pos = BMA_GENERAL[kind]
+    g = torch.Generator(device="cpu").manual_seed(len(kind))
+    args = _bma_operands(g, pairs, expand, n, le, card, labels, pos)
+    kops.reset_launch_counts()
+    got = kops.bma_cost_matrix(*args)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["bma_cost_matrix"] == 1
+    assert torch.equal(got, ref.bma_cost_matrix_ref(*args))
+
+
+@pytest.mark.parametrize("n", [8, 32, 64])
+def test_bma_cost_matrix_mixes_both_paths_in_one_launch(card, n):
+    """One batch where some pairs' states hold a half pos_anch or a label
+    above Le (the ordered loop) and the rest count with bitmasks."""
+    g = torch.Generator(device="cpu").manual_seed(n)
+    pairs, expand, le = 8, 4, 3
+    args = _bma_operands(g, pairs, expand, n, le, card)
+    args[7][3 * expand + 1, n // 2] = 0.5          # pair 3, one state
+    args[5][5, 0, n - 1] = le + 2                  # pair 5's ga
+    args[4][6, n - 1, 0] = -1                      # pair 6's qa_ord
+    kops.reset_launch_counts()
+    got = kops.bma_cost_matrix(*args)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["bma_cost_matrix"] == 1
+    assert torch.equal(got, ref.bma_cost_matrix_ref(*args))
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 400])
+@pytest.mark.parametrize("expand", [1, 8])
+def test_lsa_children_reads_ga_per_pair(card, n, expand):
+    """``ga`` one row per pair gathered by ``img_cl`` inside the kernel:
+    one state per pair or eight; N = 1, around a warp, and N = 400 (a
+    ga tile above the default 48 KB of shared memory); labels outside
+    1..Le in the mix; one launch."""
+    g = torch.Generator(device="cpu").manual_seed(n * 10 + expand)
+    pairs, le = 3, 3
+    b = pairs * expand
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=g).to(card, torch.int32)
+
+    def halves(hi, *shape):
+        return (torch.randint(0, hi, shape, generator=g) * 0.5).to(card)
+
+    args = [halves(9, b, n), ints(0, 2, b, n).float(), halves(4, b, n, le),
+            ints(-1, le + 3, pairs, n, n), ints(0, n, b, n),
+            ints(-1, le + 3, b, n), ints(0, 2, b, n).float(),
+            halves(4, b, n, le), halves(4, b, n, le), halves(6, b, n),
+            halves(6, b, n), halves(8, b, le), halves(8, b, le),
+            halves(4, b, le)]
+    kops.reset_launch_counts()
+    got = kops.lsa_children(*args)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["lsa_children"] == 1
+    assert torch.equal(got, ref.lsa_children_ref(*args))
 
 
 def test_reduced_top2_ties_and_one_column_rows(card):

@@ -189,14 +189,19 @@ def test_reduced_top2_ties_across_lane_boundaries(n, j):
     assert _np(a1)[1, 3] == j + 1
 
 
-def _lsa_inputs(rng, b, n, le):
+def _lsa_inputs(rng, b, n, le, expand=1, labels=None):
+    """The port's 14 ``lsa_children`` operands: ``ga`` one row per pair
+    (``b // expand`` rows) with edge labels drawn from ``labels`` (default
+    0..Le), ``img_cl`` one row per state."""
     f32 = np.float32
+    lo, hi = labels or (0, le + 1)
     return (
         (rng.integers(0, 6, (b, n)) * 0.5).astype(f32),        # base
         rng.integers(0, 2, (b, n)).astype(f32),                 # free_g
         rng.integers(0, 3, (b, n, le)).astype(f32),             # rowhist_g
-        rng.integers(0, le + 1, (b, n, n)).astype(np.int32),    # a_ju
-        rng.integers(0, le + 1, (b, n)).astype(np.int32),       # qrow
+        rng.integers(lo, hi, (b // expand, n, n)).astype(np.int32),  # ga
+        rng.integers(0, n, (b, n)).astype(np.int32),            # img_cl
+        rng.integers(lo, hi, (b, n)).astype(np.int32),          # qrow
         rng.integers(0, 2, (b, n)).astype(f32),                 # pos_anch
         rng.integers(0, 3, (b, n, le)).astype(f32),             # cq
         rng.integers(0, 3, (b, n, le)).astype(f32),             # cg
@@ -208,11 +213,21 @@ def _lsa_inputs(rng, b, n, le):
     )
 
 
+def _lsa_reference_args(args):
+    """The reference's 13 operands: ``a_ju[s, j, u] = ga[s // expand,
+    img_cl[s, j], u]`` built in numpy in place of ``ga`` and ``img_cl``."""
+    ga, img = args[3], args[4]
+    ga = np.repeat(ga, img.shape[0] // ga.shape[0], axis=0)
+    a_ju = np.take_along_axis(ga, img[:, :, None], axis=1)
+    return (*args[:3], a_ju, *args[5:])
+
+
 @pytest.mark.parametrize("b,n,le", [(3, 16, 3), (2, 6, 4)])
 def test_lsa_children_twin_matches_reference(b, n, le):
     rng = np.random.default_rng(b * 31 + n * 3 + le)
     args = _lsa_inputs(rng, b, n, le)
-    want = ref_ref.lsa_children_ref(*(jnp.asarray(a) for a in args))
+    want = ref_ref.lsa_children_ref(
+        *(jnp.asarray(a) for a in _lsa_reference_args(args)))
     got = kops.lsa_children(*(T(a) for a in args))
     assert np.array_equal(_np(got), np.asarray(want))
 
@@ -220,10 +235,43 @@ def test_lsa_children_twin_matches_reference(b, n, le):
 def test_lsa_children_twin_matches_pallas_kernel():
     rng = np.random.default_rng(11)
     args = _lsa_inputs(rng, 2, 16, 3)
-    want = lsa_children_pallas(*(jnp.asarray(a) for a in args),
-                               interpret=True)
+    want = lsa_children_pallas(
+        *(jnp.asarray(a) for a in _lsa_reference_args(args)), interpret=True)
     got = kops.lsa_children(*(T(a[0]) for a in args))     # unbatched
     assert np.array_equal(_np(got), np.asarray(want)[0])
+
+
+LSA_LABELS = {"in_range": None, "outside": (-2, 6)}
+
+
+@pytest.mark.parametrize("labels", sorted(LSA_LABELS))
+@pytest.mark.parametrize("le", [0, 1, 3])
+@pytest.mark.parametrize("n,expand", [(5, 1), (16, 4), (32, 8)])
+def test_lsa_children_per_pair_ga_matches_reference(n, expand, le, labels):
+    """``ga`` passed once per pair (``expand`` states each) and gathered by
+    ``img_cl`` gives the reference's result on the gathered ``a_ju``, also
+    with labels outside 1..Le (above Le: d = 1; at or below 0: base_j) and
+    at Le = 0; against the Pallas kernel in interpret mode where Le > 0."""
+    rng = np.random.default_rng(n * 10 + expand + le)
+    args = _lsa_inputs(rng, 2 * expand, n, le, expand=expand,
+                       labels=LSA_LABELS[labels])
+    ref_args = [jnp.asarray(a) for a in _lsa_reference_args(args)]
+    want = np.asarray(ref_ref.lsa_children_ref(*ref_args))
+    got = kops.lsa_children(*(T(a) for a in args))
+    assert np.array_equal(_np(got), want)
+    assert np.array_equal(_np(ref.lsa_children_ref(*(T(a) for a in args))),
+                          want)
+    if le:
+        assert np.array_equal(
+            np.asarray(lsa_children_pallas(*ref_args, interpret=True)), want)
+
+
+def test_lsa_children_rejects_states_that_do_not_divide_among_pairs():
+    args = [T(a) for a in _lsa_inputs(np.random.default_rng(2), 8, 6, 2,
+                                       expand=4)]
+    args[3] = args[3][:1].repeat(3, 1, 1)          # 3 pair rows, 8 states
+    with pytest.raises(ValueError, match="divide evenly"):
+        kops.lsa_children(*args)
 
 
 @pytest.mark.parametrize("na,nb", [(7, 5), (16, 16), (1, 9)])
@@ -503,6 +551,79 @@ def test_bma_kernel_operands_keep_pair_constants_per_pair():
         + [(pairs * expand,)] * 2
     assert torch.equal(eb.bma_cost_matrix(pc, sm, use_kernel=True),
                        eb.bma_cost_matrix(pc, sm, use_kernel=False))
+
+
+def _search_layout_states(seed, pairs, expand, slots):
+    """Engine states in the search's layout: pair constants ``(pairs, 1,
+    ...)`` against ``(pairs, expand, ...)`` states; returns ``(packed, pc,
+    sm, img, level, gc)`` with ``img``, ``level``, ``gc`` in numpy."""
+    from repro_torch.core.engine.tensor_graphs import pack_pairs, to_device
+    from repro_torch.data import graphs as port_graphs
+    rng = np.random.default_rng(seed)
+    graphs = [port_graphs.random_graph(rng, int(rng.integers(4, 8)),
+                                       density=0.4, n_vlabels=3, n_elabels=2)
+              for _ in range(pairs)]
+    packed = pack_pairs([(g, port_graphs.perturb(rng, g, 2, n_vlabels=3,
+                                                 n_elabels=2))
+                         for g in graphs], slots=slots)
+    pc = eb.make_pair_consts(*to_device(packed, "cpu")).unsqueeze(1)
+    level = np.zeros((pairs, expand), np.int32)
+    img = np.full((pairs, expand, slots), -1, np.int32)
+    for p, n in enumerate(packed.n):
+        for e in range(expand):
+            level[p, e] = rng.integers(0, n)
+            img[p, e, :level[p, e]] = rng.permutation(n)[:level[p, e]]
+    gc = (rng.integers(0, 7, (pairs, expand)) * 0.5).astype(np.float32)
+    sm = eb.state_masks(pc, T(img), T(level))
+    return packed, pc, sm, img, level, gc
+
+
+def test_lsa_kernel_operands_keep_ga_per_pair():
+    """In the search's layout the ``lsa_children`` kernel operands carry
+    ``ga`` once per pair and ``img_cl`` per state (no ``a_ju`` copy), and
+    the fused bound of every state equals the reference's on that state."""
+    pairs, expand, slots = 3, 4, 8
+    packed, pc, sm, img, level, gc = _search_layout_states(
+        9, pairs, expand, slots)
+    flat, lead = eb.lsa_kernel_operands(pc, sm, T(level), T(gc))
+    assert tuple(lead) == (pairs, expand) and len(flat) == 14
+    assert flat[3].shape == (pairs, slots, slots)              # ga
+    assert flat[4].shape == (pairs * expand, slots)            # img_cl
+    assert all(x.shape[0] == pairs * expand
+               for i, x in enumerate(flat) if i != 3)
+    got = eb.lsa_children(pc, sm, T(level), T(gc), use_kernel=True)
+    assert torch.equal(got, eb.lsa_children(pc, sm, T(level), T(gc),
+                                            use_kernel=False))
+    for p in range(pairs):
+        rpc = ref_eb.make_pair_consts(
+            *(jnp.asarray(getattr(packed, k)[p])
+              for k in ("qv", "gv", "qa", "ga", "order", "n")),
+            packed.n_vlabels, packed.n_elabels)
+        for e in range(expand):
+            rsm = ref_eb.state_masks(rpc, jnp.asarray(img[p, e]),
+                                     jnp.int32(level[p, e]))
+            want = ref_eb.lsa_children(rpc, rsm, jnp.int32(level[p, e]),
+                                       jnp.float32(gc[p, e]),
+                                       use_kernel=False)
+            assert np.array_equal(_np(got[p, e]), np.asarray(want))
+
+
+@pytest.mark.parametrize("slots", [8, 13])
+def test_kernel_operand_histograms_are_label_major(slots):
+    """The engine builds the (N, Le) histogram operands label-major (a
+    transposed view of a contiguous (Le, N) per state), the layout the
+    ``bma_cost_matrix`` and ``lsa_children`` kernels read, so the wrappers
+    hand them over uncopied; every other operand is contiguous."""
+    _, pc, sm, _, level, gc = _search_layout_states(slots, 3, 4, slots)
+    lsa, _ = eb.lsa_kernel_operands(pc, sm, T(level), T(gc))
+    bma, _ = eb.bma_kernel_operands(pc, sm)
+    label_major = [lsa[2], bma[2], bma[3]]     # rowhist_g, inner_q, inner_g
+    for h in label_major:
+        assert h.shape == (12, slots, 2) and not h.is_contiguous()
+        assert h.transpose(1, 2).is_contiguous()
+    rest = [x for i, x in enumerate(lsa) if i != 2] + \
+           [x for i, x in enumerate(bma) if i not in (2, 3)]
+    assert all(x.is_contiguous() for x in rest)
 
 
 # ------------------------------------------------------------------ auction
