@@ -7,7 +7,10 @@ toolkit (``nvcc``):
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
 
-Phases (each failure raises; nothing falls back to the CPU):
+The environment variables ``REPRO_GED_SHARED_CACHE_DIR`` and
+``REPRO_GED_COMPILE_CACHE_DIR`` are cleared at start, and every timed
+engine runs with ``cache=False``, so the main and ``"auto"`` numbers time
+real work.  Phases (each failure raises; nothing falls back to the CPU):
 
 1. device line: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
@@ -48,7 +51,20 @@ Phases (each failure raises; nothing falls back to the CPU):
    same mix with every family fused (launch counts read around it; every
    kernel must launch), held field by field to the tuned run, to the
    unfused run and, on 16 pairs, to the CPU;
-8. a ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
+8. ``[cache]``, the result cache in front of the engine: the main cell's
+   pairs twice on ``GedEngine("cuda", cache=True)`` (256 misses that
+   launch the kernels, then 256 hits with no launch and no executor call,
+   equal to the misses and to the uncached run; then ``verify`` misses
+   every pair), wall seconds and pairs/s of both calls and the time spent
+   digesting; in-batch duplicates (256 + 64 repeats, 256 run); the
+   ``"auto"`` mix all fused (the miss launches all four kernels, the
+   repeat none and no dispatch); ``submit``/``flush`` in ticket order;
+   vertex-permuted copies (``digest="wl"`` hits, ``"exact"`` misses); the
+   shared tier filled by a child process (``--shared-cache-child``) and
+   read here with 256 hits and no launch; and ``compile_cache_dir``, two
+   child processes (``--compile-cache-child``) of which the first runs
+   nvcc and the second loads its library;
+9. a ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
    as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
@@ -57,7 +73,9 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -535,7 +553,8 @@ def auto_run(pairs, vocab, device, trace=False, **options):
     seconds of each, dispatch rows)."""
     import torch
     from repro_torch.ged import GedEngine
-    eng = GedEngine("auto", device=device, vocab=vocab, **options)
+    eng = GedEngine("auto", device=device, vocab=vocab, cache=False,
+                    **options)
     with (DispatchTrace(eng) if trace else contextlib.nullcontext()) as tr:
         t0 = time.perf_counter()
         comp = eng.compute(pairs)
@@ -551,7 +570,7 @@ def auto_run(pairs, vocab, device, trace=False, **options):
 
 def auto_phase(pairs, ks, tune_dir):
     """The "auto" path on the card; returns (summary, launches of the
-    all-fused run)."""
+    all-fused run, the tuned run's ``compute`` outcomes)."""
     from repro_torch.core.engine.tensor_graphs import label_vocab
     from repro_torch.ged import KernelDispatch
     from repro_torch.kernels import ops as kops
@@ -634,7 +653,7 @@ def auto_phase(pairs, ks, tune_dir):
     assert not diff, f"CPU and card auto outcomes differ at {diff}"
     log(f"[auto] {CPU_PAIRS} pairs on the CPU agree with the card "
         f"({time.perf_counter() - t0:.1f} s)")
-    return summ, launches
+    return summ, launches, comp
 
 
 # ------------------------------------------------------------ main path
@@ -654,7 +673,7 @@ def run_engine(backend, pairs, device, vocab, **overrides):
     from repro_torch.ged import GedEngine
     cfg = dict(pool=POOL, expand=EXPAND, max_iters=MAX_ITERS)
     cfg.update(overrides)
-    eng = GedEngine(backend, device=device, vocab=vocab, **cfg)
+    eng = GedEngine(backend, device=device, vocab=vocab, cache=False, **cfg)
     t0 = time.perf_counter()
     comp = eng.compute(pairs)
     if device == "cuda":
@@ -701,8 +720,8 @@ def profile_launches(backend, pairs, vocab, iters: int = 16):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.ged import GedEngine
-    eng = GedEngine(backend, device="cuda", vocab=vocab, pool=POOL,
-                    expand=EXPAND, max_iters=iters)
+    eng = GedEngine(backend, device="cuda", vocab=vocab, cache=False,
+                    pool=POOL, expand=EXPAND, max_iters=iters)
     eng.compute(pairs)                                  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -737,10 +756,243 @@ def profile_launches(backend, pairs, vocab, iters: int = 16):
                 for name, (cnt, us) in top]}
 
 
+# ---------------------------------------------------------- result cache
+
+CACHE_ENV_VARS = ("REPRO_GED_SHARED_CACHE_DIR", "REPRO_GED_COMPILE_CACHE_DIR")
+DUPLICATES = 64      # repeats of the first pairs in the in-batch check
+ISOMORPHS = 64       # pairs re-sent as vertex-permuted copies
+
+
+def cached_engine(vocab, **options):
+    """A ``"cuda"`` engine on the main cell's rung-1 config, cache on."""
+    from repro_torch.ged import GedEngine
+    return GedEngine("cuda", device="cuda", vocab=vocab, cache=True,
+                     pool=POOL, expand=EXPAND, max_iters=MAX_ITERS,
+                     **options)
+
+
+def timed(fn):
+    """(result, wall seconds) of ``fn()``, ended by a device sync."""
+    import torch
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def uncached(o):
+    """``o`` with the ``"cached"`` flag its stats gained on a hit taken
+    out, after checking that it is there."""
+    assert o.stats.get("cached") is True, o.stats
+    stats = dict(o.stats)
+    del stats["cached"]
+    return dataclasses.replace(o, stats=stats)
+
+
+def expect_same(tag, got, want):
+    diff = [i for i, (a, b) in enumerate(zip(got, want))
+            if not same_outcome(a, b)]
+    assert len(got) == len(want) and not diff, f"{tag}: differ at {diff[:10]}"
+
+
+def permuted(rng, g):
+    """An isomorphic copy of ``g``: vertex ``i`` is old vertex ``perm[i]``."""
+    from repro_torch.core.exact.graph import Graph
+    perm = rng.permutation(g.n)
+    return Graph(g.vlabels[perm], g.adj[np.ix_(perm, perm)])
+
+
+def child(args):
+    """Run this script in a child process on the card; its last stdout
+    line, parsed as JSON."""
+    res = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), *args],
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, (f"child {args[0]} exited "
+                                 f"{res.returncode}:\n{res.stderr[-3000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def shared_cache_child(directory) -> int:
+    """Child of check 6: the main cell's pairs on ``"cuda"`` with the
+    shared tier in ``directory``; prints every outcome's scalars."""
+    from repro_torch.core.engine.tensor_graphs import label_vocab
+    pairs, _ = aids_pairs(np.random.default_rng(SEED), PAIRS, 20, 30)
+    eng = cached_engine(label_vocab(pairs), shared_cache_dir=directory)
+    outs = eng.compute(pairs)
+    stats = eng.stats
+    assert stats["shared_cache_misses"] == PAIRS, stats
+    assert stats["shared_cache_entries"] == PAIRS, stats
+    print(json.dumps({"scalars": [
+        [o.ged, o.lower_bound, o.upper_bound, o.certified, o.similar]
+        for o in outs]}))
+    return 0
+
+
+def compile_cache_child(directory) -> int:
+    """Child of check 7: build and load the kernel library into
+    ``directory`` (``compile_cache_dir``), hold ``reduced_top2`` to its
+    twin, print the ``persistent_cache_*`` counters."""
+    from repro_torch.ged import GedEngine
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    eng = GedEngine("cuda", device="cuda", compile_cache_dir=directory)
+    assert _build.library_path().parent == Path(directory)
+    cost, prices = top2_inputs(PAIRS * EXPAND, 32, "cuda", seed=11)
+    check_kernel("reduced_top2", kops.reduced_top2, ref.reduced_top2_ref,
+                 [cost, prices], [], ops=0, timed=False)
+    print(json.dumps({k: v for k, v in eng.stats.items()
+                      if k.startswith("persistent_cache_")}))
+    return 0
+
+
+def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
+                auto_comp, smi):
+    """The result cache in front of the engine on the card: seven checks,
+    each fatal.  ``comp_c`` / ``ver_c`` are the main path's uncached
+    ``"cuda"`` outcomes on ``pairs``, ``auto_comp`` the ``"auto"`` path's
+    on ``auto_pairs``.  Returns the phase's summary."""
+    from repro_torch.ged import GedEngine, KernelDispatch
+    from repro_torch.ged.exec import pair_key
+    from repro_torch.kernels import ops as kops
+    three = ("reduced_top2", "bma_cost_matrix", "lsa_children")
+
+    # 1. repeats: 256 misses that launch the kernels, then 256 hits that
+    # launch nothing, equal to the misses and to the uncached run
+    eng = cached_engine(vocab)
+    kops.reset_launch_counts()
+    miss, t_miss = timed(lambda: eng.compute(pairs))
+    miss_launches = kops.launch_counts()
+    stats = eng.stats
+    assert stats["result_cache_misses"] == PAIRS, stats
+    assert all(miss_launches[k] > 0 for k in three), miss_launches
+    calls = stats["executor_calls"]
+    kops.reset_launch_counts()
+    hit, t_hit = timed(lambda: eng.compute(pairs))
+    hit_launches = kops.launch_counts()
+    stats = eng.stats
+    assert stats["result_cache_hits"] == PAIRS, stats
+    assert stats["executor_calls"] == calls, stats
+    assert set(hit_launches.values()) == {0}, hit_launches
+    expect_same("[cache] hit vs miss", [uncached(o) for o in hit], miss)
+    expect_same("[cache] miss vs cache=False", miss, comp_c)
+    t0 = time.perf_counter()
+    for q, g in pairs:
+        pair_key(q, g, False, None, eng.config, eng.backend)
+    t_digest = time.perf_counter() - t0
+    ver = eng.verify(pairs, tau=TAU)
+    stats = eng.stats
+    assert stats["result_cache_misses"] == 2 * PAIRS, stats
+    assert stats["result_cache_hits"] == PAIRS, stats
+    expect_same("[cache] verify vs cache=False", ver, ver_c)
+    summ = {"miss_s": t_miss, "hit_s": t_hit,
+            "miss_pairs_per_s": PAIRS / t_miss,
+            "hit_pairs_per_s": PAIRS / t_hit,
+            "digest_s": t_digest, "digest_share_of_miss": t_digest / t_miss,
+            "miss_launches": miss_launches, "hit_launches": hit_launches}
+    log("[cache] repeats: " + json.dumps(summ) + f" ({smi})")
+
+    # 2. in-batch duplicates run once and answer twice
+    eng = cached_engine(vocab)
+    outs = eng.compute(pairs + pairs[:DUPLICATES])
+    stats = eng.stats
+    assert (stats["result_cache_misses"], stats["result_cache_hits"],
+            stats["executor_pairs"]) == (PAIRS, DUPLICATES, PAIRS), stats
+    expect_same("[cache] duplicates", outs[:PAIRS], comp_c)
+    expect_same("[cache] duplicates", [uncached(o) for o in outs[PAIRS:]],
+                outs[:DUPLICATES])
+    log(f"[cache] {DUPLICATES} in-batch duplicates answered, "
+        f"{PAIRS} pairs ran")
+
+    # 3. "auto", every family fused, in front of the scheduler
+    fused = KernelDispatch(lsa_fused=True, bma_fused=True, merge_fused=True)
+    eng = GedEngine("auto", device="cuda", vocab=auto_vocab, cache=True,
+                    use_kernel=True, dispatch=fused)
+    kops.reset_launch_counts()
+    first, t_auto_miss = timed(lambda: eng.compute(auto_pairs))
+    auto_launches = kops.launch_counts()
+    assert all(v > 0 for v in auto_launches.values()), auto_launches
+    dispatches = eng.stats["dispatches"]
+    kops.reset_launch_counts()
+    second, t_auto_hit = timed(lambda: eng.compute(auto_pairs))
+    assert set(kops.launch_counts().values()) == {0}
+    assert eng.stats["dispatches"] == dispatches, eng.stats
+    assert all(o.certified for o in first), "uncertified auto answer"
+    expect_same("[cache] auto hit vs miss", [uncached(o) for o in second],
+                first)
+    expect_same("[cache] auto vs the tuned auto run", first, auto_comp)
+    summ.update(auto_miss_s=t_auto_miss, auto_hit_s=t_auto_hit,
+                auto_miss_launches=auto_launches,
+                auto_hit_pairs_per_s=len(auto_pairs) / t_auto_hit)
+    log(f"[cache] auto: miss {t_auto_miss:.3f} s, launches "
+        f"{json.dumps(auto_launches)}; hit {t_auto_hit:.4f} s, "
+        f"{len(auto_pairs) / t_auto_hit:.1f} pairs/s, 0 launches, "
+        f"0 dispatches ({smi})")
+
+    # 4. streaming: alternate computations and verifications
+    eng = cached_engine(vocab)
+    tickets = [eng.submit(q, g, tau=TAU if i % 2 else None)
+               for i, (q, g) in enumerate(pairs)]
+    assert tickets == list(range(PAIRS)), tickets[:5]
+    expect_same("[cache] flush", eng.flush(),
+                [(ver_c if i % 2 else comp_c)[i] for i in range(PAIRS)])
+    assert eng.flush() == []
+    log(f"[cache] flush answered {PAIRS} submissions in ticket order")
+
+    # 5. WL digests: isomorphic copies hit, exact digests miss
+    rng = np.random.default_rng(SEED + 8)
+    base = pairs[:ISOMORPHS]
+    copies = [(permuted(rng, q), permuted(rng, g)) for q, g in base]
+    for digest, hits in (("wl", ISOMORPHS), ("exact", 0)):
+        eng = cached_engine(vocab, digest=digest)
+        before = eng.compute(base)
+        after = eng.compute(copies)
+        stats = eng.stats
+        assert (stats["result_cache_hits"],
+                stats["result_cache_misses"]) == \
+            (hits, 2 * ISOMORPHS - hits), (digest, stats)
+        assert all(a.ged == b.ged for a, b in zip(before, after)
+                   if a.certified and b.certified), digest
+        if digest == "wl":
+            assert all(o.mapping is None and o.stats.get("cached")
+                       for o in after)
+    log(f"[cache] {ISOMORPHS} permuted copies: wl digests hit, exact miss")
+
+    # 6. the cross-process tier: a child fills it, a fresh engine here
+    # answers every pair from it without a launch
+    with tempfile.TemporaryDirectory() as d:
+        written = child(["--shared-cache-child", d])["scalars"]
+        eng = cached_engine(vocab, shared_cache_dir=d)
+        kops.reset_launch_counts()
+        outs, t_shared = timed(lambda: eng.compute(pairs))
+        assert set(kops.launch_counts().values()) == {0}
+        assert eng.stats["shared_cache_hits"] == PAIRS, eng.stats
+        got = [[o.ged, o.lower_bound, o.upper_bound, o.certified, o.similar]
+               for o in outs]
+        assert got == written, "shared-tier scalars differ from the child's"
+    summ.update(shared_hit_s=t_shared, shared_hit_pairs_per_s=PAIRS / t_shared)
+    log(f"[cache] shared tier: {PAIRS}/{PAIRS} hits from a child process, "
+        f"{t_shared:.4f} s, {PAIRS / t_shared:.1f} pairs/s ({smi})")
+
+    # 7. compile_cache_dir: the first child compiles, the second loads
+    with tempfile.TemporaryDirectory() as d:
+        cold = child(["--compile-cache-child", d])
+        warm = child(["--compile-cache-child", d])
+    assert (cold["persistent_cache_misses"],
+            cold["persistent_cache_hits"]) == (1, 0), cold
+    assert (warm["persistent_cache_misses"],
+            warm["persistent_cache_hits"]) == (0, 1), warm
+    log(f"[cache] compile_cache_dir: cold {json.dumps(cold)}, "
+        f"warm {json.dumps(warm)}")
+    return summ
+
+
 # ----------------------------------------------------------------- main
 
 def main(argv) -> int:
     import torch
+    for var in CACHE_ENV_VARS:        # runs here set their own directories
+        os.environ.pop(var, None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 1
@@ -749,6 +1001,10 @@ def main(argv) -> int:
               "(src/repro_torch is missing)", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    if argv[:1] == ["--shared-cache-child"]:
+        return shared_cache_child(argv[1])
+    if argv[:1] == ["--compile-cache-child"]:
+        return compile_cache_child(argv[1])
     from repro_torch.core.engine.tensor_graphs import label_vocab
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -857,11 +1113,17 @@ def main(argv) -> int:
                              40, 60)
     with tempfile.TemporaryDirectory() as tune_dir:
         tune_phase(tune_dir, dev)
-        auto_summ, launches = auto_phase(pairs + big, ks + big_ks, tune_dir)
+        auto_summ, launches, auto_comp = auto_phase(pairs + big, ks + big_ks,
+                                                    tune_dir)
+
+    # ---- the result cache in front of the engine -----------------------
+    cache_summ = cache_phase(pairs, vocab, comp_c, ver_c, pairs + big,
+                             label_vocab(pairs + big), auto_comp, smi)
 
     log("[kernels] " + ", ".join(
         f"{k}: launches={launches[k]} equal=True" for k in KERNELS))
-    log(json.dumps({"main_path": summ, "auto_path": auto_summ, "profile": {
+    log(json.dumps({"main_path": summ, "auto_path": auto_summ,
+                    "cache_path": cache_summ, "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))
     def device_or_call(row, key):

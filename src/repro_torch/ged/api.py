@@ -5,35 +5,50 @@
     outcomes = ged.compute([(q, g), ...])          # "auto", on the card
     engine = ged.GedEngine("torch", pool=512, device="cpu")
     outcomes = engine.verify(pairs, tau=4.0)
+    engine.submit(q, g); engine.submit(q2, g2, tau=3.0)
+    outcomes = engine.flush()                      # streaming
 
 Inputs are anything :func:`repro_torch.ged.plan.as_graph` understands;
 every entry point returns one :class:`GedOutcome` per pair.  Entry points
 run on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``; without a visible GPU the default raises.
+
+In front of every backend sits an engine-level result cache
+(:class:`repro_torch.ged.exec.ResultCache`): queries are keyed on
+canonical pair digests (label-vocab-independent; tau-aware for
+verification), so duplicate pairs — within one batch or across calls —
+are answered without planning or running the engine again.
+``GedEngine(cache=False)`` opts out (timed runs do, to time real work).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Union
+import os
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from repro_torch.core.engine.search import EngineConfig
 from repro_torch.device import DeviceLike
 from repro_torch.ged.backends import Backend, make_backend
-from repro_torch.ged.plan import Vocab, as_pairs, build_plan
+from repro_torch.ged.exec import (DIGESTS, ResultCache, detached,
+                                  enable_compile_cache, pair_key,
+                                  pair_key_from_digests,
+                                  persistent_cache_stats)
+from repro_torch.ged.plan import Vocab, as_graph, as_pairs, build_plan
 from repro_torch.ged.results import GedOutcome
 from repro_torch.kernels.autotune import autotune_stats, enable_autotune
+from repro_torch.store_io.shared_cache import (SHARED_CACHE_ENV,
+                                               SharedResultCache)
 
 Taus = Union[float, Sequence[float]]
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(EngineConfig)}
 
 # options of the reference's GedEngine that the port does not have yet
-_NOT_PORTED_OPTIONS = ("cache", "cache_size", "shared_cache_dir",
-                       "compile_cache_dir", "digest", "deadline_s",
-                       "per_pair_deadline_s", "retry", "fault_inject", "mesh")
+_NOT_PORTED_OPTIONS = ("deadline_s", "per_pair_deadline_s", "retry",
+                       "fault_inject", "mesh")
 
 
 def _refuse_unported(options) -> None:
@@ -67,6 +82,26 @@ class GedEngine:
         identical either way.
     max_in_flight : rung buckets dispatched but not yet drained at once
         (``"auto"``, overlap mode).
+    cache : keep an engine-level result cache (default True): duplicate
+        pairs — within one batch or across calls — are answered from the
+        cache instead of running again.  ``cache_size`` bounds it (LRU).
+    shared_cache_dir : directory of the cross-process result-cache tier
+        (default: ``$REPRO_GED_SHARED_CACHE_DIR``; unset means off).  An
+        on-disk, file-locked LRU of certified scalars
+        (:class:`repro_torch.store_io.SharedResultCache`) behind the
+        in-memory cache: probed on in-memory misses (hits are promoted),
+        written with every certified outcome, in the reference's format.
+        Counters appear in :attr:`stats` as ``shared_cache_*``.
+    compile_cache_dir : build directory of the CUDA kernel library
+        (default: ``$REPRO_GED_COMPILE_CACHE_DIR``; unset means
+        ``build/repro_torch_kernels``).  The library is built there once
+        and loaded by later processes.  Process-global; counters appear
+        in :attr:`stats` as ``persistent_cache_*``.
+    digest : graph hash of the result-cache keys.  ``"exact"`` (default)
+        keys byte-identical graphs, so cached mappings stay valid;
+        ``"wl"`` keys Weisfeiler-Leman digests, so isomorphic duplicates
+        hit too (and WL-equivalent non-isomorphic pairs alias: the trade
+        it opts into); cached copies then drop their mappings.
     autotune_dir : directory of the measured kernel-tuning table (default:
         ``$REPRO_GED_AUTOTUNE_DIR``; unset means in memory only).
         ``use_kernel="auto"`` resolves each bucket's ``(slots, batch)``
@@ -78,8 +113,9 @@ class GedEngine:
     ``"torch"`` (False) and ``"cuda"`` (True): a contradicting boolean
     raises, while ``use_kernel="auto"`` is accepted on every backend — it
     picks among bit-identical implementations, so outcomes never change.
-    The reference's result cache, deadlines, retries, fault injection and
-    mesh are not ported yet; passing one raises ``TypeError``.
+    The reference's deadlines (``deadline_s``, ``per_pair_deadline_s``),
+    ``retry``, ``fault_inject`` and ``mesh`` are not ported yet; passing
+    one raises ``TypeError``.
 
     >>> from repro_torch import ged
     >>> eng = ged.GedEngine("torch", device="cpu", pool=16, expand=2)
@@ -95,13 +131,23 @@ class GedEngine:
                  batch_size: int = 256,
                  overlap: bool = True,
                  max_in_flight: int = 4,
+                 cache: bool = True,
+                 cache_size: int = 4096,
+                 shared_cache_dir: Optional[str] = None,
+                 compile_cache_dir: Optional[str] = None,
                  autotune_dir: Optional[str] = None,
+                 digest: str = "exact",
                  config: Optional[EngineConfig] = None,
                  **config_overrides):
         _refuse_unported(config_overrides)
         unknown = set(config_overrides) - _CONFIG_FIELDS
         if unknown:
             raise TypeError(f"unknown GedEngine options: {sorted(unknown)}")
+        if digest not in DIGESTS:
+            raise ValueError(f"unknown digest {digest!r}; "
+                             f"expected one of {sorted(DIGESTS)}")
+        self.digest = digest
+        self.compile_cache_dir = enable_compile_cache(compile_cache_dir)
         self.autotune_dir = enable_autotune(autotune_dir)
         if config is None:
             config = EngineConfig(**{"use_kernel": False, **config_overrides})
@@ -109,6 +155,13 @@ class GedEngine:
             config = dataclasses.replace(config, **config_overrides)
         self.slots = slots
         self.vocab = vocab
+        self._cache = ResultCache(cache_size) if cache else None
+        if shared_cache_dir is None:
+            shared_cache_dir = os.environ.get(SHARED_CACHE_ENV) or None
+        self._shared = (SharedResultCache(str(shared_cache_dir))
+                        if shared_cache_dir else None)
+        self.shared_cache_dir = shared_cache_dir
+        self._pending: List[Tuple[object, object, Optional[float]]] = []
         self._backend: Backend = make_backend(
             backend, device=device, batch_size=batch_size, overlap=overlap,
             max_in_flight=max_in_flight)
@@ -148,24 +201,129 @@ class GedEngine:
         """
         return self._run(pairs, tau, True, config_overrides, vocab)
 
+    def submit(self, q, g, tau: Optional[float] = None) -> int:
+        """Enqueue one pair (verification when ``tau`` is given, otherwise
+        computation); returns its ticket — the index into ``flush()``'s
+        result list.
+
+        >>> from repro_torch import ged
+        >>> eng = ged.GedEngine("exact", device="cpu")
+        >>> eng.submit(([0], []), ([1], []))        # computation
+        0
+        >>> eng.submit(([0], []), ([0], []), tau=0.5)   # verification
+        1
+        >>> [(o.ged, o.similar) for o in eng.flush()]
+        [(1.0, None), (None, True)]
+        """
+        self._pending.append((q, g, None if tau is None else float(tau)))
+        return len(self._pending) - 1
+
+    def flush(self, deadline_s: Optional[float] = None,
+              per_pair_deadline_s: Optional[float] = None
+              ) -> List[GedOutcome]:
+        """Answer every submitted pair, in submission order.
+
+        Computation and verification submissions come back as one list
+        aligned with the tickets :meth:`submit` returned; a drained engine
+        flushes to ``[]``.  The reference's flush-level deadlines are not
+        ported yet: passing one raises ``TypeError``.
+        """
+        _refuse_unported({k for k, v in (
+            ("deadline_s", deadline_s),
+            ("per_pair_deadline_s", per_pair_deadline_s)) if v is not None})
+        pending, self._pending = self._pending, []
+        results: List[Optional[GedOutcome]] = [None] * len(pending)
+        comp = [i for i, (_, _, tau) in enumerate(pending) if tau is None]
+        veri = [i for i, (_, _, tau) in enumerate(pending) if tau is not None]
+        if comp:
+            outs = self.compute([pending[i][:2] for i in comp])
+            for i, o in zip(comp, outs):
+                results[i] = o
+        if veri:
+            outs = self.verify([pending[i][:2] for i in veri],
+                               [pending[i][2] for i in veri])
+            for i, o in zip(veri, outs):
+                results[i] = o
+        return results  # type: ignore[return-value]
+
     @property
     def batch_multiple(self) -> int:
         """Shard count every batch is padded to (1 on a single device)."""
         return getattr(self._backend, "batch_multiple", 1)
 
     @property
-    def stats(self):
+    def stats(self) -> Dict[str, float]:
         """Backend counters (``"auto"``: ``pairs``, ``escalated``,
         ``host_solved``, ``batches``, ``dispatches``, ``overlap_saved_s``,
-        ``survivors_rung_{k}``), ``executor_*`` counters and the tuning
-        table's ``autotune_*`` counters."""
-        out = dict(getattr(self._backend, "stats", {}))
+        ``survivors_rung_{k}``), ``executor_*`` counters, the result
+        cache's ``result_cache_*`` and ``index_pivot_*`` counters (with
+        ``cache=True``), the shared tier's ``shared_cache_*`` (with a
+        ``shared_cache_dir``), the kernel build's ``persistent_cache_*``
+        (with a ``compile_cache_dir``) and the tuning table's
+        ``autotune_*`` counters.
+
+        >>> from repro_torch import ged
+        >>> eng = ged.GedEngine("exact", device="cpu")
+        >>> _ = eng.compute([(([0], []), ([1], []))])
+        >>> eng.stats["result_cache_misses"]
+        1
+        """
+        out: Dict[str, float] = dict(getattr(self._backend, "stats", {}))
         executor = getattr(self._backend, "executor", None)
         if executor is not None:
             out.update({f"executor_{k}": v
                         for k, v in executor.stats.items()})
+        if self._cache is not None:
+            out["result_cache_hits"] = self._cache.hits
+            out["result_cache_misses"] = self._cache.misses
+            out["result_cache_entries"] = len(self._cache)
+            out["index_pivot_hits"] = self._cache.pivot_hits
+            out["index_pivot_misses"] = self._cache.pivot_misses
+        if self._shared is not None:
+            out["shared_cache_hits"] = self._shared.hits
+            out["shared_cache_misses"] = self._shared.misses
+            out["shared_cache_evictions"] = self._shared.evictions
+            out["shared_cache_entries"] = self._shared.entries()
+            out["shared_cache_lock_timeouts"] = self._shared.lock_timeouts
+        out.update(persistent_cache_stats())
         out.update(autotune_stats())
         return out
+
+    def cached_distance(self, q=None, g=None, *,
+                        digests: Optional[Tuple[bytes, bytes]] = None
+                        ) -> Optional[float]:
+        """A certified exact distance for one pair straight from the result
+        cache — no planning, no execution, ``None`` on a miss.
+
+        Pass ``digests=(dq, dg)`` when the graphs are already hashed; both
+        orientations of the pair are probed.  Only certified computation
+        entries answer, and only the scalar comes back.  Lookups count
+        into ``stats["index_pivot_hits"]`` / ``["index_pivot_misses"]``,
+        not the query path's ``result_cache_*``.
+
+        >>> from repro_torch import ged
+        >>> eng = ged.GedEngine("exact", device="cpu")
+        >>> a, b = ([0], []), ([1], [])
+        >>> eng.cached_distance(a, b) is None       # nothing cached yet
+        True
+        >>> _ = eng.compute([(a, b)])
+        >>> eng.cached_distance(b, a)               # either orientation
+        1.0
+        """
+        if self._cache is None:
+            return None
+        if digests is None:
+            fn = DIGESTS[self.digest]
+            digests = (fn(as_graph(q)), fn(as_graph(g)))
+        for dq, dg in (digests, digests[::-1]):
+            key = pair_key_from_digests(dq, dg, False, None, self.config,
+                                        self.backend, digest=self.digest)
+            out = self._cache.peek(key)
+            if out is not None and out.certified and out.ged is not None:
+                self._cache.pivot_hits += 1
+                return float(out.ged)
+        self._cache.pivot_misses += 1
+        return None
 
     def _run(self, pairs, tau: Optional[Taus], verification: bool,
              overrides: dict, vocab: Optional[Vocab]) -> List[GedOutcome]:
@@ -191,10 +349,64 @@ class GedEngine:
                 np.asarray(tau, dtype=np.float32), (n,)).copy()
         else:
             taus = np.zeros((n,), dtype=np.float32)
-        plan = build_plan(pairs, slots=self.slots,
-                          vocab=vocab if vocab is not None else self.vocab,
-                          batch_multiple=self.batch_multiple)
-        return self._backend.run(plan, taus, verification, cfg)
+
+        results: List[Optional[GedOutcome]] = [None] * n
+        run_idx = list(range(n))
+        keys: List[Optional[tuple]] = [None] * n
+        dup_of: Dict[int, int] = {}
+        if self._cache is not None or self._shared is not None:
+            run_idx, seen = [], {}
+            for i, (q, g) in enumerate(pairs):
+                keys[i] = pair_key(
+                    q, g, verification,
+                    float(taus[i]) if verification else None, cfg,
+                    self.backend, digest=self.digest)
+                if keys[i] in seen:
+                    # duplicate within this batch: runs once, answers twice
+                    dup_of[i] = seen[keys[i]]
+                    if self._cache is not None:
+                        self._cache.hits += 1
+                    continue
+                hit = self._cache.get(keys[i]) \
+                    if self._cache is not None else None
+                if hit is None and self._shared is not None:
+                    # the cross-process tier answers in-memory misses;
+                    # promote hits so this process stops paying disk
+                    hit = self._shared.get(keys[i])
+                    if hit is not None and self._cache is not None:
+                        self._cache.put(keys[i], self._cache_view(hit))
+                if hit is not None:
+                    results[i] = hit
+                else:
+                    seen[keys[i]] = i
+                    run_idx.append(i)
+
+        if run_idx:
+            plan = build_plan(
+                [pairs[i] for i in run_idx], slots=self.slots,
+                vocab=vocab if vocab is not None else self.vocab,
+                batch_multiple=self.batch_multiple)
+            outs = self._backend.run(plan, taus[run_idx], verification, cfg)
+            for i, o in zip(run_idx, outs):
+                results[i] = o
+                if self._cache is not None:
+                    self._cache.put(keys[i], self._cache_view(o))
+                if self._shared is not None:
+                    self._shared.put(keys[i], o)   # certified-only inside
+        for i, j in dup_of.items():
+            # a distinct outcome per position, so mutating one entry
+            # cannot leak into its duplicates (or the cache)
+            results[i] = detached(self._cache_view(results[j]),
+                                  {**results[j].stats, "cached": True})
+        return results  # type: ignore[return-value]
+
+    def _cache_view(self, outcome: GedOutcome) -> GedOutcome:
+        """What a cache (or in-batch duplicate) may reuse of ``outcome``:
+        everything under exact digests; under WL digests the vertex
+        mapping, valid only for the graph that produced it, is dropped."""
+        if self.digest == "exact" or outcome.mapping is None:
+            return outcome
+        return dataclasses.replace(outcome, mapping=None)
 
 
 def compute(pairs, backend: str = "auto", **options) -> List[GedOutcome]:

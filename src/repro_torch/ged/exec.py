@@ -10,6 +10,12 @@ Backends (:mod:`repro_torch.ged.backends`) are policies; everything about
   returns; :meth:`PendingBatch.ready` polls without blocking and
   :meth:`PendingBatch.result` hands back numpy.
 * :func:`engine_outcome` — one :class:`GedOutcome` from a row of a result.
+* :class:`ResultCache` — the engine-level outcome cache keyed on canonical
+  pair digests (:func:`graph_digest` / :func:`wl_digest`; label-vocab
+  independent, tau-aware for verification) that
+  :class:`repro_torch.ged.GedEngine` consults before any executor runs.
+* :func:`enable_compile_cache` — the kernel library's build directory,
+  the port's counterpart of the reference's persistent compile cache.
 
 The reference's retry and degradation ladder (``repro/ged/exec.py``) is
 not part of this layer yet; a kernel that fails to build or launch raises.
@@ -17,6 +23,10 @@ not part of this layer yet; a kernel that fails to build or launch raises.
 
 from __future__ import annotations
 
+import collections
+import dataclasses
+import hashlib
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -24,10 +34,63 @@ import torch
 
 from repro_torch.core.engine import api as engine_api
 from repro_torch.core.engine.search import EngineConfig
+from repro_torch.core.exact.graph import Graph
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.ged.plan import Bucket, Vocab, pack_bucket
 from repro_torch.ged.results import GedOutcome, engine_mapping
-from repro_torch.kernels import autotune
+from repro_torch.kernels import _build, autotune
+
+
+# ------------------------------------------------- persistent compile cache
+
+COMPILE_CACHE_ENV = "REPRO_GED_COMPILE_CACHE_DIR"
+
+
+def enable_compile_cache(cache_dir: Optional[str] = None) -> Optional[str]:
+    """Point the CUDA kernel library's build at ``cache_dir``.
+
+    ``cache_dir`` defaults to the ``REPRO_GED_COMPILE_CACHE_DIR``
+    environment variable; when neither is set this is a no-op returning
+    ``None`` and the library stays in ``kernels/_build.BUILD_DIR``.  The
+    library is built there once (``nvcc``, under a name that hashes the
+    sources and flags) and loaded from there by later processes, so the
+    build is paid once per machine.  Process-global: the library is loaded
+    once per process, so re-pointing the directory after that load changes
+    only where later processes build.  Hit/miss counts land in
+    :func:`persistent_cache_stats` (and so in ``engine.stats``).
+
+    >>> enable_compile_cache(None) is None     # no dir, no env: no-op
+    True
+    """
+    path = cache_dir or os.environ.get(COMPILE_CACHE_ENV)
+    if not path:
+        return None
+    os.makedirs(path, exist_ok=True)
+    _build.set_build_dir(str(path))
+    return str(path)
+
+
+def persistent_cache_stats() -> Dict[str, float]:
+    """Process-wide kernel-build counters (empty when no directory was
+    enabled).
+
+    ``persistent_cache_hits`` / ``persistent_cache_misses`` count the
+    builds this process found already in the directory / compiled with
+    ``nvcc``; ``persistent_cache_entries`` is the number of kernel
+    libraries in the directory.
+    """
+    d = _build._CACHE["dir"]
+    if d is None:
+        return {}
+    try:
+        entries = sum(1 for name in os.listdir(str(d))
+                      if name.startswith("librepro_torch_kernels-")
+                      and name.endswith(".so"))
+    except OSError:
+        entries = 0
+    return {"persistent_cache_hits": float(_build._CACHE["hits"]),
+            "persistent_cache_misses": float(_build._CACHE["misses"]),
+            "persistent_cache_entries": float(entries)}
 
 
 class PendingBatch:
@@ -154,3 +217,187 @@ def engine_outcome(out: Dict[str, np.ndarray], packed, bi: int,
         ged=ged, similar=None, certified=certified,
         lower_bound=min(lb, ged), upper_bound=ged,
         mapping=mapping, backend=backend, wall_s=wall_s, stats=stats)
+
+
+# ------------------------------------------------------------ result cache
+
+def graph_digest(g: Graph) -> bytes:
+    """Canonical digest of one graph, independent of any batch label vocab.
+
+    Hashes the concrete representation (raw int64 labels + adjacency), so
+    equality means *identical* graphs — mappings in cached outcomes stay
+    index-compatible.  Byte-equal to the reference's ``graph_digest``.
+
+    >>> from repro_torch.ged.plan import as_graph
+    >>> g = as_graph(([0, 1], [(0, 1, 1)]))
+    >>> len(graph_digest(g))
+    16
+    >>> graph_digest(g) == graph_digest(as_graph(([0, 1], [(0, 1, 1)])))
+    True
+    """
+    h = hashlib.blake2b(digest_size=16)
+    h.update(np.int64(g.n).tobytes())
+    h.update(np.ascontiguousarray(g.vlabels, dtype=np.int64).tobytes())
+    h.update(np.ascontiguousarray(g.adj, dtype=np.int64).tobytes())
+    return h.digest()
+
+
+def wl_digest(g: Graph, iters: int = 3) -> bytes:
+    """Isomorphism-invariant digest: Weisfeiler-Leman color refinement.
+
+    Vertex colors start from vertex labels and are refined ``iters`` times
+    with the sorted multiset of ``(edge_label, neighbor_color)`` pairs; the
+    digest hashes the sorted final color multiset, an edge summary (sorted
+    ``(color, color, edge_label)`` triples) and the graph sizes, so
+    isomorphic graphs always collide.  WL refinement is not a complete
+    isomorphism test: WL-equivalent non-isomorphic graphs (a 6-cycle and
+    two triangles) share a digest, which is the trade
+    ``GedEngine(digest="wl")`` opts into.  Byte-equal to the reference's
+    ``wl_digest``.
+
+    >>> from repro_torch.ged.plan import as_graph
+    >>> g = as_graph(([0, 1, 2], [(0, 1, 1), (1, 2, 2)]))
+    >>> p = as_graph(([2, 1, 0], [(1, 0, 2), (2, 1, 1)]))   # relabelled copy
+    >>> wl_digest(g) == wl_digest(p)
+    True
+    >>> graph_digest(g) == graph_digest(p)
+    False
+    """
+    def h8(*parts: bytes) -> bytes:
+        hh = hashlib.blake2b(digest_size=8)
+        for p in parts:
+            hh.update(p)
+        return hh.digest()
+
+    adj = g.adj
+    colors = [h8(np.int64(int(a)).tobytes()) for a in g.vlabels]
+    for _ in range(iters):
+        colors = [
+            h8(colors[v], *(np.int64(int(adj[v, u])).tobytes() + colors[u]
+                            for u in sorted(np.nonzero(adj[v])[0].tolist(),
+                                            key=lambda u: (adj[v, u],
+                                                           colors[u]))))
+            for v in range(g.n)
+        ]
+    out = hashlib.blake2b(digest_size=16)
+    out.update(np.int64(g.n).tobytes())
+    out.update(np.int64(g.m).tobytes())
+    for c in sorted(colors):
+        out.update(c)
+    ii, jj = np.nonzero(np.triu(adj, k=1))
+    for t in sorted(
+        h8(*sorted((colors[i], colors[j])),
+           np.int64(int(adj[i, j])).tobytes())
+        for i, j in zip(ii.tolist(), jj.tolist())
+    ):
+        out.update(t)
+    return out.digest()
+
+
+DIGESTS = {"exact": graph_digest, "wl": wl_digest}
+
+
+def pair_key_from_digests(dq: bytes, dg: bytes, verification: bool,
+                          tau: Optional[float], cfg: EngineConfig,
+                          backend: str, digest: str = "exact") -> tuple:
+    """:func:`pair_key` when the graph digests are already in hand (the
+    form :meth:`repro_torch.ged.GedEngine.cached_distance` uses)."""
+    return (digest, dq, dg, bool(verification),
+            None if tau is None else float(tau), cfg, backend)
+
+
+def pair_key(q: Graph, g: Graph, verification: bool, tau: Optional[float],
+             cfg: EngineConfig, backend: str, digest: str = "exact") -> tuple:
+    """Cache key for one query: pair digests + mode (tau-aware) + config.
+
+    The same pair in a different mode (or at a different tau) keys
+    differently, so a verification answer never shadows a computation.
+    ``cfg`` enters as given: ``use_kernel="auto"`` stays unresolved, so
+    tuned and untuned runs (bit-identical outcomes) share entries.
+
+    >>> from repro_torch.ged.plan import as_graph
+    >>> q = as_graph(([0], [])); g = as_graph(([1], []))
+    >>> pair_key(q, g, True, 2.0, None, "torch") == \\
+    ...     pair_key(q, g, False, None, None, "torch")
+    False
+    >>> p = as_graph(([1], []))                 # same graph, new object
+    >>> pair_key(q, p, False, None, None, "torch", digest="wl") == \\
+    ...     pair_key(q, g, False, None, None, "torch", digest="wl")
+    True
+    """
+    fn = DIGESTS[digest]
+    return pair_key_from_digests(fn(q), fn(g), verification, tau, cfg,
+                                 backend, digest=digest)
+
+
+def detached(outcome: GedOutcome, stats: Dict[str, float]) -> GedOutcome:
+    """An independent copy of ``outcome`` — own stats dict, own mapping
+    array — with ``stats`` swapped in, so a caller may mutate what it is
+    handed without corrupting a cached entry or a duplicate's answer.
+
+    >>> a = GedOutcome(ged=1.0, similar=None, certified=True,
+    ...                lower_bound=1.0, upper_bound=1.0, mapping=None,
+    ...                backend="exact", wall_s=0.0, stats={"rung": 0})
+    >>> b = detached(a, {**a.stats, "cached": True})
+    >>> b.stats["cached"], "cached" in a.stats
+    (True, False)
+    """
+    mapping = None if outcome.mapping is None else np.array(outcome.mapping)
+    return dataclasses.replace(outcome, mapping=mapping, stats=stats)
+
+
+class ResultCache:
+    """LRU cache of :class:`GedOutcome` keyed by :func:`pair_key`.
+
+    Sits in front of every executor (``GedEngine`` consults it before
+    planning), so duplicate pairs — across calls or within one batch —
+    never re-execute, whatever the backend.
+
+    >>> cache = ResultCache(maxsize=2)
+    >>> cache.get(("some", "key")) is None     # miss
+    True
+    >>> out = GedOutcome(ged=2.0, similar=None, certified=True,
+    ...                  lower_bound=2.0, upper_bound=2.0, mapping=None,
+    ...                  backend="torch", wall_s=0.01)
+    >>> cache.put(("some", "key"), out)
+    >>> hit = cache.get(("some", "key"))
+    >>> hit.ged, hit.stats["cached"], (cache.hits, cache.misses)
+    (2.0, True, (1, 1))
+    """
+
+    def __init__(self, maxsize: int = 4096):
+        self.maxsize = int(maxsize)
+        self._entries: "collections.OrderedDict[tuple, GedOutcome]" = \
+            collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        # distance-reuse probes (cached_distance) are counted apart from
+        # query hits/misses: a probe miss is expected and must not skew
+        # the hit rate of the query path
+        self.pivot_hits = 0
+        self.pivot_misses = 0
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def peek(self, key: tuple) -> Optional[GedOutcome]:
+        """Read-only probe: no LRU bump, no hit/miss counting and no
+        detached copy.  Callers treat the entry as frozen and read only
+        scalars off it (``ged``, ``certified``), never its ``mapping``."""
+        return self._entries.get(key)
+
+    def get(self, key: tuple) -> Optional[GedOutcome]:
+        out = self._entries.get(key)
+        if out is None:
+            self.misses += 1
+            return None
+        self._entries.move_to_end(key)
+        self.hits += 1
+        # wall_s stays the cost of the run that produced the entry
+        return detached(out, {**out.stats, "cached": True})
+
+    def put(self, key: tuple, outcome: GedOutcome) -> None:
+        self._entries[key] = detached(outcome, dict(outcome.stats))
+        self._entries.move_to_end(key)
+        while len(self._entries) > self.maxsize:
+            self._entries.popitem(last=False)

@@ -3,11 +3,12 @@
 The sources in ``csrc/`` are compiled with ``nvcc`` for Hopper
 (``sm_90a``) into one shared library with a plain C interface, loaded with
 ``ctypes``.  Each ``.cu`` file gets its own ``nvcc`` process, all started
-together, and the objects are then linked.  The library lands in
-``build/repro_torch_kernels/`` at the repository root, under a name that
-hashes the sources and flags, so an edit rebuilds and an unchanged tree
-reuses the last build.  Nothing here runs at import time: the first call
-to :func:`library` builds.
+together, and the objects are then linked.  The library lands in the
+build directory (``build/repro_torch_kernels/`` at the repository root,
+unless :func:`set_build_dir` points elsewhere: the engine's
+``compile_cache_dir``), under a name that hashes the sources and flags,
+so an edit rebuilds and an unchanged tree reuses the last build.  Nothing
+here runs at import time: the first call to :func:`library` builds.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ _SIGNATURES: Dict[str, tuple] = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+# where build() looks for and writes the library, and how often it found
+# the library there ("hits") or ran nvcc ("misses"); process-global like
+# the loaded library
+_CACHE: Dict[str, object] = {"dir": None, "hits": 0, "misses": 0}
 
 
 def nvcc_path() -> str:
@@ -68,18 +73,33 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """The directory :func:`build` uses: the one set by
+    :func:`set_build_dir`, else ``BUILD_DIR``."""
+    return BUILD_DIR if _CACHE["dir"] is None else Path(_CACHE["dir"])
+
+
+def set_build_dir(path: str) -> None:
+    """Build into (and load from) ``path``.  A library this process
+    already loaded stays loaded: the new directory serves later
+    :func:`build` calls, in practice later processes."""
+    _CACHE["dir"] = str(path)
+
+
 def library_path() -> Path:
-    return BUILD_DIR / f"librepro_torch_kernels-{_digest()}.so"
+    return build_dir() / f"librepro_torch_kernels-{_digest()}.so"
 
 
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into the shared library (if not built yet)."""
     target = library_path()
     if target.exists():
+        _CACHE["hits"] += 1
         return target
+    _CACHE["misses"] += 1
     nvcc = nvcc_path()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    target.parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=target.parent) as tmp:
         objs, procs = [], []
         for name in SOURCES:
             obj = os.path.join(tmp, name.replace(".cu", ".o"))

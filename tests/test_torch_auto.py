@@ -1,7 +1,7 @@
 """The slice as a whole: the port's escalating ``"auto"`` backend against
 the reference's, on the CPU.
 
-``repro_torch.ged.GedEngine("auto", device="cpu")`` and
+``repro_torch.ged.GedEngine("auto", device="cpu", cache=False)`` and
 ``repro.ged.GedEngine("auto", cache=False)`` get the same pairs with the
 escalation rungs of both shrunk to tiny ``(pool, expand, max_iters)``
 triples, so the mix climbs every rung and some pairs end at the host
@@ -56,7 +56,8 @@ def _mix(seed=0, count=12):
 
 
 def _engines(port_kw=None, ref_kw=None):
-    port = ged.GedEngine("auto", device="cpu", **(port_kw or {}))
+    port = ged.GedEngine("auto", device="cpu", cache=False,
+                         **(port_kw or {}))
     ref = ref_ged.GedEngine("auto", cache=False, **(ref_kw or {}))
     for e in (port, ref):
         e._backend.scheduler.rungs = RUNGS
@@ -106,7 +107,7 @@ def test_auto_pinned_slots_and_per_pair_taus():
 def test_overlap_off_gives_the_same_outcomes():
     pairs = _mix(seed=2, count=8)
     on, _ = _engines()
-    off = ged.GedEngine("auto", device="cpu", overlap=False)
+    off = ged.GedEngine("auto", device="cpu", cache=False, overlap=False)
     off._backend.scheduler.rungs = RUNGS
     a, b = on.compute(pairs), off.compute(pairs)
     assert [_key(o) for o in a] == [_key(o) for o in b]
@@ -138,7 +139,7 @@ def test_use_kernel_auto_with_and_without_a_table(tmp_path):
 @pytest.mark.parametrize("tau", [None, 1.0])
 def test_exact_backend_equals_reference(tau):
     pairs = _mix(seed=4, count=6)
-    got = _run(ged.GedEngine("exact"), pairs, tau)
+    got = _run(ged.GedEngine("exact", cache=False), pairs, tau)
     want = _run(ref_ged.GedEngine("exact", cache=False), pairs, tau)
     assert [_key(o) for o in got] == [_key(o) for o in want]
     for a, b in zip(got, want):

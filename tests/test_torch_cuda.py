@@ -305,6 +305,31 @@ def test_card_outcomes_equal_cpu_outcomes(card, verification):
                  b.upper_bound, b.stats)
 
 
+def test_cached_repeat_launches_no_kernel(card, monkeypatch):
+    """On ``"cuda"`` with the result cache on, the first ``compute``
+    launches the kernels and the second is answered from the cache with
+    no launch at all, equal to the first (``"cached"`` added)."""
+    monkeypatch.delenv("REPRO_GED_SHARED_CACHE_DIR", raising=False)
+    pairs = _pairs(np.random.default_rng(9), 12, 4, 14)
+    eng = ged.GedEngine("cuda", device=card, cache=True, pool=128,
+                        expand=4, max_iters=64)
+    kops.reset_launch_counts()
+    first = eng.compute(pairs)
+    assert kops.launch_counts()["bma_cost_matrix"] > 0
+    kops.reset_launch_counts()
+    second = eng.compute(pairs)
+    assert set(kops.launch_counts().values()) == {0}
+    assert eng.stats["result_cache_hits"] == len(pairs)
+    for a, b in zip(first, second):
+        assert b.stats.pop("cached") is True
+        assert (a.ged, a.similar, a.certified, a.lower_bound,
+                a.upper_bound, a.stats) == \
+            (b.ged, b.similar, b.certified, b.lower_bound, b.upper_bound,
+             b.stats)
+        assert (a.mapping is None and b.mapping is None) or \
+            np.array_equal(a.mapping, b.mapping)
+
+
 MERGE_SHAPES = [(252, 128), (1016, 256), (4088, 256), (1016, 512),
                 (4088, 512), (100, 700), (0, 5), (7, 0)]
 

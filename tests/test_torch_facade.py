@@ -1,6 +1,7 @@
 """The port's ``repro_torch.ged`` facade: import hygiene, device rules,
-backend policy (``"auto"`` the default, unported options refused), and
-outcomes against the reference ``repro.ged``.
+backend policy (``"auto"`` the default, unported options refused, the
+ported cache options treated as the reference treats them), and outcomes
+against the reference ``repro.ged``.
 
 Outcomes are held to the reference's ``"jax"`` backend on the same pairs:
 ``ged``, ``similar``, ``certified``, ``lower_bound``, ``upper_bound``,
@@ -27,6 +28,7 @@ from repro_torch.core.engine.search import EngineConfig  # noqa: E402
 from repro_torch.core.engine.tensor_graphs import pack_pairs  # noqa: E402
 from repro_torch.ged.exec import Executor, PendingBatch  # noqa: E402
 from repro_torch.ged.plan import build_plan  # noqa: E402
+from repro_torch.store_io import SHARED_CACHE_ENV  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 SMALL = dict(pool=64, expand=4, max_iters=64)
@@ -88,6 +90,8 @@ def test_port_sources_have_no_jax_or_reference_imports():
     assert {"src/repro_torch/core/exact/search.py",
             "src/repro_torch/runtime/scheduler.py",
             "src/repro_torch/store_io/atomic.py",
+            "src/repro_torch/store_io/shared_cache.py",
+            "src/repro_torch/ged/exec.py",
             "src/repro_torch/kernels/autotune.py"} <= names
     offenders = [f"{f.name}:{i}: {line.strip()}"
                  for f in files
@@ -132,11 +136,11 @@ def test_auto_and_exact_backends_work_and_auto_is_the_default(name):
     ``compute`` / ``verify`` / ``GedEngine`` is the ``"auto"`` backend."""
     pairs = _workload(2, 4, 3, 7)
     exact = ref_ged.GedEngine("exact", cache=False).compute(pairs)
-    outs = ged.GedEngine(name, device="cpu").compute(pairs)
+    outs = ged.GedEngine(name, device="cpu", cache=False).compute(pairs)
     assert [o.ged for o in outs] == [o.ged for o in exact]
     assert all(o.certified for o in outs)
     assert {o.backend for o in outs} <= {name, "auto/exact"}
-    default = ged.compute(pairs, device="cpu")
+    default = ged.compute(pairs, device="cpu", cache=False)
     assert {o.backend for o in default} <= {"auto", "auto/exact"}
     assert [o.ged for o in default] == [o.ged for o in exact]
     assert ged.GedEngine(device="cpu").backend == "auto"
@@ -147,12 +151,45 @@ def test_auto_and_exact_backends_work_and_auto_is_the_default(name):
 @pytest.mark.parametrize("option", [
     "cache", "shared_cache_dir", "deadline_s", "retry", "fault_inject",
     "digest", "mesh"])
-def test_unported_options_raise_type_error(option):
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        ged.GedEngine(device="cpu", **{option: None})
+def test_unported_options_raise_type_error(option, monkeypatch):
+    """``deadline_s``, ``retry``, ``fault_inject`` and ``mesh`` are not
+    ported: the engine and a call given one raise ``TypeError`` naming
+    ROADMAP.md.  ``cache``, ``shared_cache_dir`` and ``digest`` are ported
+    engine options, so given ``None`` the port does what the reference
+    does: ``cache=None`` and ``shared_cache_dir=None`` are accepted and
+    answer like the reference, ``digest=None`` raises ``ValueError`` in
+    both packages, and per call (they are engine options, not
+    ``EngineConfig`` fields) both raise ``TypeError`` for unknown engine
+    options."""
+    monkeypatch.delenv(SHARED_CACHE_ENV, raising=False)
+    pairs = _workload(1, 1, 3, 4)
     eng = ged.GedEngine("torch", device="cpu", **SMALL)
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        eng.compute(_workload(1, 1, 3, 4), **{option: None})
+    if option not in ("cache", "shared_cache_dir", "digest"):
+        with pytest.raises(TypeError, match="ROADMAP.md"):
+            ged.GedEngine(device="cpu", **{option: None})
+        with pytest.raises(TypeError, match="ROADMAP.md"):
+            eng.compute(pairs, **{option: None})
+        return
+    ref = ref_ged.GedEngine("jax", slots=8, **SMALL)
+    for e in (eng, ref):
+        with pytest.raises(TypeError, match="unknown engine options"):
+            e.compute(pairs, **{option: None})
+    if option == "digest":
+        for make in (lambda: ged.GedEngine(device="cpu", digest=None),
+                     lambda: ref_ged.GedEngine("jax", digest=None)):
+            with pytest.raises(ValueError, match="unknown digest"):
+                make()
+        return
+    port = ged.GedEngine("torch", device="cpu", slots=8, **SMALL,
+                         **{option: None})
+    ref = ref_ged.GedEngine("jax", slots=8, **SMALL, **{option: None})
+    for _ in range(2):
+        for a, b in zip(port.compute(pairs), ref.compute(pairs)):
+            _same(a, b)
+            assert a.stats.get("cached") == b.stats.get("cached")
+    for key in ("result_cache_hits", "shared_cache_hits"):
+        assert (key in port.stats) == (key in ref.stats), key
+    assert port.shared_cache_dir is None and ref.shared_cache_dir is None
 
 
 def test_backend_registry_and_unknown_names():
@@ -189,7 +226,8 @@ def test_outcomes_equal_reference_jax_backend(verification):
     ref = ref_ged.GedEngine("jax", cache=False, slots=8, **SMALL)
     want = ref.verify(pairs, tau) if verification else ref.compute(pairs)
     for backend in ("torch", "cuda"):
-        eng = ged.GedEngine(backend, device="cpu", slots=8, **SMALL)
+        eng = ged.GedEngine(backend, device="cpu", cache=False, slots=8,
+                            **SMALL)
         got = eng.verify(pairs, tau) if verification else eng.compute(pairs)
         assert [o.backend for o in got] == [backend] * len(pairs)
         for a, b in zip(got, want):
@@ -203,7 +241,8 @@ def test_bucketed_workload_cuda_equals_torch_and_exact_answers():
     pairs = _workload(3, 7, 2, 12)
     plan = build_plan(pairs)
     assert len(plan.buckets) >= 2
-    outs = {b: ged.GedEngine(b, device="cpu", **SMALL).compute(pairs)
+    outs = {b: ged.GedEngine(b, device="cpu", cache=False,
+                             **SMALL).compute(pairs)
             for b in ("torch", "cuda")}
     exact = ref_ged.GedEngine("exact", cache=False).compute(pairs)
     for a, b, e in zip(outs["torch"], outs["cuda"], exact):
