@@ -7,10 +7,14 @@ toolkit (``nvcc``):
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
 
-The environment variables ``REPRO_GED_SHARED_CACHE_DIR`` and
-``REPRO_GED_COMPILE_CACHE_DIR`` are cleared at start, and every timed
-engine runs with ``cache=False``, so the main and ``"auto"`` numbers time
-real work.  Phases (each failure raises; nothing falls back to the CPU):
+The environment variables ``REPRO_GED_SHARED_CACHE_DIR``,
+``REPRO_GED_COMPILE_CACHE_DIR`` and ``REPRO_GED_FAULT_INJECT`` are cleared
+at start, and every timed engine runs with ``cache=False``, so the main
+and ``"auto"`` numbers time real work.  The engine stats of every phase
+but ``[faults]`` must carry no robustness counter (``retries``,
+``fault_*``, ``degraded_*``, ``timed_out_pairs``), so a failed kernel
+cannot hide behind the degradation ladder.  Phases (each failure raises;
+nothing falls back to the CPU):
 
 1. device line: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
@@ -64,8 +68,24 @@ real work.  Phases (each failure raises; nothing falls back to the CPU):
    read here with 256 hits and no launch; and ``compile_cache_dir``, two
    child processes (``--compile-cache-child``) of which the first runs
    nvcc and the second loads its library;
-9. a ``{"kernels": [...]}`` JSON line, the card's name and power limit, and
-   as the last line ``{"ok": true, "device": {...}}``.
+9. ``[faults]``, the anytime deadline contract and the degradation ladder:
+   ``deadline_s=3600`` on the main cell's ``"cuda"`` run and the
+   all-fused ``"auto"`` mix (outcomes and launch counts equal the runs
+   without a deadline); ``deadline_s=0`` on ``"auto"`` (every answer
+   timed out with bounds that bracket the certified GED, no dispatch, no
+   launch); a mid-run deadline, a quarter of ``[auto]``'s median
+   ``compute`` wall, at ``max_in_flight`` 4 and 1 (certified answers equal
+   the clean run, the rest bracket it; the overshoot past the deadline,
+   whose clock starts once the call has planned its pairs, beside the
+   whole call's wall);
+   a transient ``dispatch`` fault (one retry, equal answers); a permanent
+   ``kernel`` fault on 32 pairs (no launch, every pair host-solved,
+   certified and equal; the host solver's seconds per pair); ``result``
+   and ``host`` faults (sound answers); and the caches (a ``lock`` fault
+   fails open, a timed-out call caches nothing, ``flush(deadline_s=0)``
+   answers every ticket timed out, in order);
+10. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
+    and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -527,8 +547,9 @@ class DispatchTrace:
             resolved.append(out.dispatch)
             return out
 
-        def run(packed, taus, cfg, verification, real=None):
-            pending = self._run(packed, taus, cfg, verification, real=real)
+        def run(packed, taus, cfg, verification, real=None, **kw):
+            pending = self._run(packed, taus, cfg, verification, real=real,
+                                **kw)
             out = pending.result()
             d = resolved.pop() if resolved else None
             self.rows.append({
@@ -548,9 +569,11 @@ class DispatchTrace:
         del self.eng._backend.executor.run_packed_async
 
 
-def auto_run(pairs, vocab, device, trace=False, **options):
+def auto_run(pairs, vocab, device, trace=False, faults_on=False,
+             **options):
     """One ``"auto"`` engine over the mix: (compute, verify, stats, wall
-    seconds of each, dispatch rows)."""
+    seconds of each, dispatch rows).  Unless ``faults_on``, its stats
+    must carry no robustness counter."""
     import torch
     from repro_torch.ged import GedEngine
     eng = GedEngine("auto", device=device, vocab=vocab, cache=False,
@@ -565,6 +588,8 @@ def auto_run(pairs, vocab, device, trace=False, **options):
         if device == "cuda":
             torch.cuda.synchronize()
         t2 = time.perf_counter()
+    if not faults_on:
+        no_fault_keys("auto", eng.stats)
     return comp, ver, eng.stats, t1 - t0, t2 - t1, tr.rows if tr else None
 
 
@@ -653,10 +678,23 @@ def auto_phase(pairs, ks, tune_dir):
     assert not diff, f"CPU and card auto outcomes differ at {diff}"
     log(f"[auto] {CPU_PAIRS} pairs on the CPU agree with the card "
         f"({time.perf_counter() - t0:.1f} s)")
-    return summ, launches, comp
+    return summ, launches, comp, ver
 
 
 # ------------------------------------------------------------ main path
+
+# robustness counters: present only once a fault, a retry or an expired
+# deadline happened, so no phase but [faults] may show one
+FAULT_KEY_PREFIXES = ("retries", "fault_", "degraded_", "timed_out_pairs")
+
+
+def no_fault_keys(tag, stats):
+    """A broken kernel must not hide behind the degradation ladder: the
+    engine ``stats`` of every phase but ``[faults]`` carry no robustness
+    counter (the ``executor_`` copies included)."""
+    bad = [k for k in stats
+           if k.removeprefix("executor_").startswith(FAULT_KEY_PREFIXES)]
+    assert not bad, f"[{tag}] engine stats carry fault counters: {bad}"
 
 def same_outcome(a, b) -> bool:
     if (a.ged, a.similar, a.certified, a.lower_bound, a.upper_bound, a.tau,
@@ -668,7 +706,12 @@ def same_outcome(a, b) -> bool:
     return bool(np.array_equal(a.mapping, b.mapping))
 
 
-def run_engine(backend, pairs, device, vocab, **overrides):
+def run_engine(backend, pairs, device, vocab, faults_on=False,
+               engine_out=None, **overrides):
+    """``compute`` then ``verify(tau=TAU)`` on one uncached engine at the
+    main cell's rung-1 config: (compute, verify, wall seconds of each).
+    Unless ``faults_on``, its stats must carry no robustness counter;
+    ``engine_out`` (a list) receives the engine."""
     import torch
     from repro_torch.ged import GedEngine
     cfg = dict(pool=POOL, expand=EXPAND, max_iters=MAX_ITERS)
@@ -683,6 +726,10 @@ def run_engine(backend, pairs, device, vocab, **overrides):
     if device == "cuda":
         torch.cuda.synchronize()
     t2 = time.perf_counter()
+    if not faults_on:
+        no_fault_keys(backend, eng.stats)
+    if engine_out is not None:
+        engine_out.append(eng)
     return comp, ver, t1 - t0, t2 - t1
 
 
@@ -730,6 +777,7 @@ def profile_launches(backend, pairs, vocab, iters: int = 16):
         outs = eng.compute(pairs)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    no_fault_keys("profile", eng.stats)
     loops = max(o.stats["iterations"] for o in outs)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -758,7 +806,8 @@ def profile_launches(backend, pairs, vocab, iters: int = 16):
 
 # ---------------------------------------------------------- result cache
 
-CACHE_ENV_VARS = ("REPRO_GED_SHARED_CACHE_DIR", "REPRO_GED_COMPILE_CACHE_DIR")
+CACHE_ENV_VARS = ("REPRO_GED_SHARED_CACHE_DIR", "REPRO_GED_COMPILE_CACHE_DIR",
+                  "REPRO_GED_FAULT_INJECT")
 DUPLICATES = 64      # repeats of the first pairs in the in-batch check
 ISOMORPHS = 64       # pairs re-sent as vertex-permuted copies
 
@@ -822,6 +871,7 @@ def shared_cache_child(directory) -> int:
     stats = eng.stats
     assert stats["shared_cache_misses"] == PAIRS, stats
     assert stats["shared_cache_entries"] == PAIRS, stats
+    no_fault_keys("cache", stats)
     print(json.dumps({"scalars": [
         [o.ged, o.lower_bound, o.upper_bound, o.certified, o.similar]
         for o in outs]}))
@@ -884,6 +934,7 @@ def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
     stats = eng.stats
     assert stats["result_cache_misses"] == 2 * PAIRS, stats
     assert stats["result_cache_hits"] == PAIRS, stats
+    no_fault_keys("cache", stats)
     expect_same("[cache] verify vs cache=False", ver, ver_c)
     summ = {"miss_s": t_miss, "hit_s": t_hit,
             "miss_pairs_per_s": PAIRS / t_miss,
@@ -898,6 +949,7 @@ def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
     stats = eng.stats
     assert (stats["result_cache_misses"], stats["result_cache_hits"],
             stats["executor_pairs"]) == (PAIRS, DUPLICATES, PAIRS), stats
+    no_fault_keys("cache", stats)
     expect_same("[cache] duplicates", outs[:PAIRS], comp_c)
     expect_same("[cache] duplicates", [uncached(o) for o in outs[PAIRS:]],
                 outs[:DUPLICATES])
@@ -917,6 +969,7 @@ def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
     second, t_auto_hit = timed(lambda: eng.compute(auto_pairs))
     assert set(kops.launch_counts().values()) == {0}
     assert eng.stats["dispatches"] == dispatches, eng.stats
+    no_fault_keys("cache", eng.stats)
     assert all(o.certified for o in first), "uncertified auto answer"
     expect_same("[cache] auto hit vs miss", [uncached(o) for o in second],
                 first)
@@ -937,6 +990,7 @@ def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
     expect_same("[cache] flush", eng.flush(),
                 [(ver_c if i % 2 else comp_c)[i] for i in range(PAIRS)])
     assert eng.flush() == []
+    no_fault_keys("cache", eng.stats)
     log(f"[cache] flush answered {PAIRS} submissions in ticket order")
 
     # 5. WL digests: isomorphic copies hit, exact digests miss
@@ -951,6 +1005,7 @@ def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
         assert (stats["result_cache_hits"],
                 stats["result_cache_misses"]) == \
             (hits, 2 * ISOMORPHS - hits), (digest, stats)
+        no_fault_keys("cache", stats)
         assert all(a.ged == b.ged for a, b in zip(before, after)
                    if a.certified and b.certified), digest
         if digest == "wl":
@@ -967,6 +1022,7 @@ def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
         outs, t_shared = timed(lambda: eng.compute(pairs))
         assert set(kops.launch_counts().values()) == {0}
         assert eng.stats["shared_cache_hits"] == PAIRS, eng.stats
+        no_fault_keys("cache", eng.stats)
         got = [[o.ged, o.lower_bound, o.upper_bound, o.certified, o.similar]
                for o in outs]
         assert got == written, "shared-tier scalars differ from the child's"
@@ -987,11 +1043,231 @@ def cache_phase(pairs, vocab, comp_c, ver_c, auto_pairs, auto_vocab,
     return summ
 
 
+# --------------------------------------------------- deadlines and faults
+
+KERNEL_FAULT_PAIRS = 32   # main-cell pairs sent down the ladder by a fault
+SITE_FAULT_PAIRS = 8      # pairs of the result- and host-site checks
+MID_RUN_SHARE = 0.25      # the mid-run budget, as a share of [auto]'s wall
+
+
+def brackets(o, truth) -> bool:
+    """``o``'s bounds hold the certified distance ``truth``."""
+    return o.lower_bound <= truth <= o.upper_bound
+
+
+def sound(o, truth, tau=None) -> bool:
+    """Certified with the clean answer, or uncertified with bounds that
+    bracket it and a verdict (if any) that agrees with it."""
+    if o.certified:
+        return (o.ged == truth) if tau is None else (o.similar == (truth <= tau))
+    if not brackets(o, truth):
+        return False
+    return tau is None or o.similar is None or o.similar == (truth <= tau)
+
+
+def without(o, *keys):
+    """``o`` with ``keys`` taken out of its stats."""
+    return dataclasses.replace(
+        o, stats={k: v for k, v in o.stats.items() if k not in keys})
+
+
+def faults_phase(pairs, vocab, comp_c, ver_c, cuda_launches, auto_pairs,
+                 auto_vocab, auto_comp, auto_ver, fused_launches,
+                 auto_compute_s, tune_dir, smi):
+    """The anytime deadline contract and the degradation ladder on the
+    card: seven checks, each fatal.  ``comp_c`` / ``ver_c`` and
+    ``cuda_launches`` are the main path's uncached ``"cuda"`` outcomes and
+    launch counts, ``auto_comp`` / ``auto_ver`` and ``fused_launches`` the
+    ``"auto"`` path's (tuned outcomes, all-fused counts), ``auto_compute_s``
+    the tuned ``compute``'s median wall.  Returns the phase's summary."""
+    from repro_torch.ged import (FaultInjector, GedEngine, KernelDispatch,
+                                 RetryPolicy)
+    from repro_torch.ged import faults
+    from repro_torch.kernels import ops as kops
+    from repro_torch.ged import build_plan
+    assert all(o.certified for o in comp_c + auto_comp), "uncertified answer"
+    truths = [o.ged for o in comp_c]
+    auto_truths = [o.ged for o in auto_comp]
+    summ = {}
+    t_phase = time.perf_counter()
+
+    # 1. a deadline that never bites: identical outcomes, identical launches
+    kops.reset_launch_counts()
+    comp, ver, _, _ = run_engine("cuda", pairs, "cuda", vocab,
+                                 deadline_s=3600.0)
+    assert kops.launch_counts() == cuda_launches, (kops.launch_counts(),
+                                                   cuda_launches)
+    expect_same("[faults] cuda deadline 3600 s", comp + ver, comp_c + ver_c)
+    fused = KernelDispatch(lsa_fused=True, bma_fused=True, merge_fused=True)
+    kops.reset_launch_counts()
+    comp, ver, _, _, _, _ = auto_run(auto_pairs, auto_vocab, "cuda",
+                                     dispatch=fused, deadline_s=3600.0)
+    assert kops.launch_counts() == fused_launches, (kops.launch_counts(),
+                                                    fused_launches)
+    expect_same("[faults] auto deadline 3600 s", comp + ver,
+                auto_comp + auto_ver)
+    log("[faults] deadline 3600 s: cuda and all-fused auto outcomes and "
+        f"launch counts equal the runs without a deadline ({smi})")
+
+    # 2. an expired deadline: every pair answered, nothing dispatched
+    kops.reset_launch_counts()
+    comp, ver, stats, t_c, t_v, _ = auto_run(
+        auto_pairs, auto_vocab, "cuda", faults_on=True, dispatch=fused,
+        deadline_s=0.0)
+    assert set(kops.launch_counts().values()) == {0}, kops.launch_counts()
+    assert stats["dispatches"] == 0, stats
+    assert stats["timed_out_pairs"] == 2 * len(auto_pairs), stats
+    for o, t in zip(comp, auto_truths):
+        assert o.timed_out and not o.certified and brackets(o, t), (o, t)
+    for o, t in zip(ver, auto_truths):
+        assert o.timed_out and not o.certified and sound(o, t, TAU), (o, t)
+    # the facade plans (packs, orders) every pair before the backend sees
+    # the deadline: time that planning alone
+    t0 = time.perf_counter()
+    build_plan(auto_pairs, vocab=auto_vocab)
+    t_plan = time.perf_counter() - t0
+    summ.update(expired_s=[t_c, t_v], plan_s=t_plan)
+    log(f"[faults] deadline 0 s: {len(comp) + len(ver)} answers timed out, "
+        f"bounds bracket the certified GED, 0 dispatches, 0 launches "
+        f"({t_c:.4f} s compute, {t_v:.4f} s verify; planning the "
+        f"{len(auto_pairs)} pairs alone {t_plan:.4f} s) ({smi})")
+
+    # 3. a deadline that expires mid-run (tuned auto, compute): with the
+    # default max_in_flight the loop dispatches up to 4 buckets before its
+    # first expiry check; with max_in_flight=1 it checks after each one
+    # the deadline's clock starts after planning (the reference's
+    # semantics), so the overshoot is the wall less planning, timed alone
+    # on the same pairs just before, less the budget
+    budget = MID_RUN_SHARE * auto_compute_s
+    for in_flight in (4, 1):
+        eng = GedEngine("auto", device="cuda", vocab=auto_vocab,
+                        cache=False, use_kernel="auto",
+                        autotune_dir=tune_dir, max_in_flight=in_flight,
+                        deadline_s=budget)
+        t0 = time.perf_counter()
+        build_plan(auto_pairs, slots=eng.slots, vocab=auto_vocab,
+                   batch_multiple=eng.batch_multiple)
+        plan_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        outs = eng.compute(auto_pairs)
+        wall = time.perf_counter() - t0
+        overshoot = wall - plan_s - budget
+        certified = sum(o.certified for o in outs)
+        for o, clean, t in zip(outs, auto_comp, auto_truths):
+            if o.certified:
+                assert same_outcome(o, clean), (o, clean)
+            else:
+                assert o.timed_out and brackets(o, t), (o, t)
+        row = {"budget_s": budget, "wall_s": wall, "plan_s": plan_s,
+               "overshoot_s": overshoot, "wall_past_budget_s": wall - budget,
+               "certified": certified, "timed_out": len(outs) - certified,
+               "dispatches": eng.stats["dispatches"]}
+        summ[f"mid_run_max_in_flight_{in_flight}"] = row
+        log(f"[faults] mid-run deadline, max_in_flight={in_flight}: "
+            f"{budget:.4f} s ({MID_RUN_SHARE:g} of [auto]'s "
+            f"{auto_compute_s:.4f} s); returned after {wall:.4f} s, of "
+            f"which planning {plan_s:.4f} s; overshoot after planning "
+            f"{overshoot:.4f} s (whole call {wall - budget:.4f} s past the "
+            f"budget); {certified} certified, {len(outs) - certified} "
+            f"timed out, {row['dispatches']} dispatches ({smi})")
+
+    # 4. a transient dispatch fault: one retry, the same answers
+    engines = []
+    comp, ver, _, _ = run_engine(
+        "cuda", pairs, "cuda", vocab, faults_on=True, engine_out=engines,
+        fault_inject="dispatch@times=1,kind=transient",
+        retry=RetryPolicy(base_s=0.0))
+    stats = engines[0].stats
+    assert stats["retries"] == 1 and "fault_dispatch" not in stats, stats
+    expect_same("[faults] transient retry",
+                [without(o, "retries") for o in comp + ver], comp_c + ver_c)
+    log("[faults] transient dispatch fault: retries == 1, outcomes equal "
+        "the clean run")
+
+    # 5. a permanent kernel fault: the buckets go to the host solver
+    head = pairs[:KERNEL_FAULT_PAIRS]
+    eng = GedEngine("cuda", device="cuda", vocab=vocab, cache=False,
+                    pool=POOL, expand=EXPAND, max_iters=MAX_ITERS,
+                    fault_inject="kernel@times=inf")
+    kops.reset_launch_counts()
+    outs, t_host = timed(lambda: eng.compute(head))
+    assert set(kops.launch_counts().values()) == {0}, kops.launch_counts()
+    assert eng.stats["degraded_host"] == KERNEL_FAULT_PAIRS, eng.stats
+    assert "degraded_kernel" not in eng.stats, eng.stats
+    for o, t in zip(outs, truths):
+        assert o.degraded and o.certified and o.ged == t, (o, t)
+    per_pair = [o.wall_s for o in outs]
+    summ.update(host_s_per_pair_median=statistics.median(per_pair),
+                host_s_per_pair_max=max(per_pair),
+                host_s_per_pair_min=min(per_pair), host_call_s=t_host)
+    log(f"[faults] kernel@times=inf: 0 launches, degraded_host == "
+        f"{KERNEL_FAULT_PAIRS}, every answer certified and equal; host "
+        f"solver s/pair median {statistics.median(per_pair):.4f}, min "
+        f"{min(per_pair):.4f}, max {max(per_pair):.4f} (call "
+        f"{t_host:.3f} s) ({smi})")
+
+    # 6. the result and host sites: sound, certified or degraded
+    few = pairs[:SITE_FAULT_PAIRS]
+    eng = GedEngine("cuda", device="cuda", vocab=vocab, cache=False,
+                    pool=POOL, expand=EXPAND, max_iters=MAX_ITERS,
+                    fault_inject="result@times=1")
+    outs = eng.compute(few) + eng.verify(few, tau=TAU)
+    assert eng.stats["degraded_host"] >= 1, eng.stats
+    eng = GedEngine("exact", device="cuda", cache=False,
+                    fault_inject="host@times=inf")
+    host_outs = eng.compute(few) + eng.verify(few, tau=TAU)
+    assert eng.stats["fault_host"] == 2 * SITE_FAULT_PAIRS, eng.stats
+    assert not any(o.certified for o in host_outs)
+    for o, t, tau in zip(outs + host_outs, 4 * truths[:SITE_FAULT_PAIRS],
+                         ([None] * SITE_FAULT_PAIRS + [TAU] * SITE_FAULT_PAIRS)
+                         * 2):
+        assert sound(o, t, tau) and (o.certified or o.degraded), (o, t)
+    log(f"[faults] result@times=1 on cuda, host@times=inf on exact "
+        f"({SITE_FAULT_PAIRS} pairs): every answer sound")
+
+    # 7. caches are never poisoned
+    with tempfile.TemporaryDirectory() as d:
+        faults.install_injector(FaultInjector("lock@times=1"))
+        try:
+            eng = cached_engine(vocab, shared_cache_dir=d)
+            outs = eng.compute(pairs)
+        finally:
+            faults.install_injector(None)
+        assert eng.stats["shared_cache_lock_timeouts"] >= 1, eng.stats
+        expect_same("[faults] lock timeout", outs, comp_c)
+    eng = cached_engine(vocab)
+    kops.reset_launch_counts()
+    bad = eng.compute(pairs, deadline_s=0.0)
+    assert set(kops.launch_counts().values()) == {0}
+    assert all(o.timed_out for o in bad)
+    assert eng.stats["result_cache_entries"] == 0, eng.stats
+    good = eng.compute(pairs)
+    launches = kops.launch_counts()
+    assert all(launches[k] > 0 for k in
+               ("reduced_top2", "bma_cost_matrix", "lsa_children")), launches
+    assert all(o.certified for o in good)
+    expect_same("[faults] after a timed-out call", good, comp_c)
+    eng = cached_engine(vocab)
+    for i, (q, g) in enumerate(pairs):
+        eng.submit(q, g, tau=TAU if i % 2 else None)
+    flushed = eng.flush(deadline_s=0.0)
+    assert len(flushed) == PAIRS and all(o.timed_out for o in flushed)
+    assert [o.tau for o in flushed] == [TAU if i % 2 else None
+                                        for i in range(PAIRS)]
+    log("[faults] caches: lock@times=1 fails open with equal answers; a "
+        "timed-out call caches nothing and the next one launches and "
+        "certifies; flush(deadline_s=0) answers every ticket timed out, in "
+        "order")
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[faults] summary: " + json.dumps(summ) + f" ({smi})")
+    return summ
+
+
 # ----------------------------------------------------------------- main
 
 def main(argv) -> int:
     import torch
-    for var in CACHE_ENV_VARS:        # runs here set their own directories
+    for var in CACHE_ENV_VARS:        # runs here set their own
         os.environ.pop(var, None)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1113,17 +1389,24 @@ def main(argv) -> int:
                              40, 60)
     with tempfile.TemporaryDirectory() as tune_dir:
         tune_phase(tune_dir, dev)
-        auto_summ, launches, auto_comp = auto_phase(pairs + big, ks + big_ks,
-                                                    tune_dir)
+        auto_summ, launches, auto_comp, auto_ver = auto_phase(
+            pairs + big, ks + big_ks, tune_dir)
 
-    # ---- the result cache in front of the engine -----------------------
-    cache_summ = cache_phase(pairs, vocab, comp_c, ver_c, pairs + big,
-                             label_vocab(pairs + big), auto_comp, smi)
+        # ---- the result cache in front of the engine -------------------
+        cache_summ = cache_phase(pairs, vocab, comp_c, ver_c, pairs + big,
+                                 label_vocab(pairs + big), auto_comp, smi)
+
+        # ---- deadlines, faults and the degradation ladder --------------
+        faults_summ = faults_phase(
+            pairs, vocab, comp_c, ver_c, cuda_launches, pairs + big,
+            label_vocab(pairs + big), auto_comp, auto_ver, launches,
+            auto_summ["compute_s_median_min_max"][0], tune_dir, smi)
 
     log("[kernels] " + ", ".join(
         f"{k}: launches={launches[k]} equal=True" for k in KERNELS))
     log(json.dumps({"main_path": summ, "auto_path": auto_summ,
-                    "cache_path": cache_summ, "profile": {
+                    "cache_path": cache_summ, "faults_path": faults_summ,
+                    "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))
     def device_or_call(row, key):

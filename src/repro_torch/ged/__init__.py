@@ -9,7 +9,9 @@ on the card unless given ``device="cpu"``.  In front of every backend sits
 the result cache (:class:`ResultCache`, keyed on :func:`graph_digest` or
 :func:`wl_digest` pair digests, with an optional cross-process tier on
 disk), and :meth:`GedEngine.submit` / :meth:`GedEngine.flush` stream
-pairs through one engine.
+pairs through one engine.  ``deadline_s`` (:class:`Deadline`) makes a call
+anytime, ``fault_inject`` (:class:`FaultInjector`) and ``retry``
+(:class:`RetryPolicy`) drive the degradation ladder.
 
 >>> from repro_torch import ged
 >>> [o.ged for o in ged.compute([(([0], []), ([1], []))], device="cpu")]
@@ -22,6 +24,8 @@ from repro_torch.ged.backends import (AutoBackend, ExactBackend,
                                       register_backend)
 from repro_torch.ged.exec import (Executor, PendingBatch, ResultCache,
                                   engine_outcome, graph_digest, wl_digest)
+from repro_torch.ged.faults import (Deadline, FaultInjector, InjectedFault,
+                                    Overloaded, RetryPolicy)
 from repro_torch.ged.plan import Plan, as_graph, build_plan, slot_bucket
 from repro_torch.ged.results import GedOutcome
 from repro_torch.kernels.autotune import KernelDispatch
@@ -47,4 +51,9 @@ __all__ = [
     "ResultCache",
     "graph_digest",
     "wl_digest",
+    "Deadline",
+    "RetryPolicy",
+    "FaultInjector",
+    "InjectedFault",
+    "Overloaded",
 ]

@@ -19,11 +19,19 @@ canonical pair digests (label-vocab-independent; tau-aware for
 verification), so duplicate pairs — within one batch or across calls —
 are answered without planning or running the engine again.
 ``GedEngine(cache=False)`` opts out (timed runs do, to time real work).
+
+``deadline_s`` makes every call *anytime*: when the budget runs out,
+each pair still comes back, uncertified, with admissible best-so-far
+bounds (:mod:`repro_torch.ged.faults`).  Injected faults, and any
+failure on the CPU, degrade down a ladder (engine -> host solver ->
+admissible floor) instead of raising; a real kernel or CUDA failure on
+the card is raised.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import os
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -36,6 +44,8 @@ from repro_torch.ged.exec import (DIGESTS, ResultCache, detached,
                                   enable_compile_cache, pair_key,
                                   pair_key_from_digests,
                                   persistent_cache_stats)
+from repro_torch.ged.faults import (Deadline, FaultInjector, RetryPolicy,
+                                    RunContext)
 from repro_torch.ged.plan import Vocab, as_graph, as_pairs, build_plan
 from repro_torch.ged.results import GedOutcome
 from repro_torch.kernels.autotune import autotune_stats, enable_autotune
@@ -47,8 +57,7 @@ Taus = Union[float, Sequence[float]]
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(EngineConfig)}
 
 # options of the reference's GedEngine that the port does not have yet
-_NOT_PORTED_OPTIONS = ("deadline_s", "per_pair_deadline_s", "retry",
-                       "fault_inject", "mesh")
+_NOT_PORTED_OPTIONS = ("mesh",)
 
 
 def _refuse_unported(options) -> None:
@@ -107,21 +116,53 @@ class GedEngine:
         ``use_kernel="auto"`` resolves each bucket's ``(slots, batch)``
         shape to fused or unfused kernels through it; pre-warm it with
         :func:`repro_torch.kernels.autotune.tune`.  Process-global.
+    deadline_s : wall-clock budget of the search in each ``compute`` /
+        ``verify`` call (default ``None``: unbounded, bit-identical to no
+        deadline).  As in the reference, the clock starts once the call's
+        pairs are digested and planned: that preparation comes on top of
+        the budget.  ``flush`` starts one clock when it is called and
+        shares it across its sub-batches.  On expiry, in-flight work
+        drains, remaining rungs are skipped and every pair still returns a
+        :class:`GedOutcome` with best-so-far admissible ``lower_bound`` /
+        ``upper_bound``, ``certified=False`` and ``timed_out`` set.  Each
+        entry point takes a per-call override.  A dispatch is the unit of
+        work: a call returns after the dispatch in progress when the
+        budget ran out.
+    per_pair_deadline_s : additional per-pair budget for host-solver
+        searches (checked inside the search loop), capped by what remains
+        of ``deadline_s``.
+    fault_inject : deterministic fault spec (a string for
+        :class:`repro_torch.ged.faults.FaultInjector`, or an injector)
+        scoped to this engine; ``REPRO_GED_FAULT_INJECT`` injects
+        process-wide instead.
+    retry : :class:`repro_torch.ged.faults.RetryPolicy` for transient
+        dispatch failures (default: 2 retries, exponential backoff and
+        jitter).
     Remaining keyword arguments (``pool``, ``expand``, ``max_iters``,
     ``sweeps``, ``bound``, ``strategy``, ``use_kernel``, ``dispatch``)
     override :class:`EngineConfig` defaults.  ``use_kernel`` is implied by
     ``"torch"`` (False) and ``"cuda"`` (True): a contradicting boolean
     raises, while ``use_kernel="auto"`` is accepted on every backend — it
     picks among bit-identical implementations, so outcomes never change.
-    The reference's deadlines (``deadline_s``, ``per_pair_deadline_s``),
-    ``retry``, ``fault_inject`` and ``mesh`` are not ported yet; passing
-    one raises ``TypeError``.
+    The reference's ``mesh`` is not ported yet; passing it raises
+    ``TypeError``.
 
     >>> from repro_torch import ged
+    >>> q, g = ([0, 1], [(0, 1, 1)]), ([0, 2], [(0, 1, 1)])
     >>> eng = ged.GedEngine("torch", device="cpu", pool=16, expand=2)
-    >>> [o.ged for o in eng.compute([(([0, 1], [(0, 1, 1)]),
-    ...                               ([0, 2], [(0, 1, 1)]))])]
+    >>> [o.ged for o in eng.compute([(q, g)])]
     [1.0]
+
+    The anytime deadline contract: an exhausted budget still answers
+    every pair, with sound bounds.
+
+    >>> eng = ged.GedEngine("exact", device="cpu", deadline_s=0.0)
+    >>> out, = eng.compute([(q, g)])
+    >>> out.timed_out, out.certified, out.lower_bound, out.upper_bound
+    (True, False, 1.0, inf)
+    >>> out, = eng.compute([(q, g)], deadline_s=60.0)   # per-call override
+    >>> out.ged, out.certified
+    (1.0, True)
     """
 
     def __init__(self, backend: str = "auto", *,
@@ -137,12 +178,22 @@ class GedEngine:
                  compile_cache_dir: Optional[str] = None,
                  autotune_dir: Optional[str] = None,
                  digest: str = "exact",
+                 deadline_s: Optional[float] = None,
+                 per_pair_deadline_s: Optional[float] = None,
+                 fault_inject: Union[None, str, FaultInjector] = None,
+                 retry: Optional[RetryPolicy] = None,
                  config: Optional[EngineConfig] = None,
                  **config_overrides):
         _refuse_unported(config_overrides)
         unknown = set(config_overrides) - _CONFIG_FIELDS
         if unknown:
             raise TypeError(f"unknown GedEngine options: {sorted(unknown)}")
+        self.deadline_s = deadline_s
+        self.per_pair_deadline_s = per_pair_deadline_s
+        self._injector = (FaultInjector(fault_inject)
+                          if isinstance(fault_inject, str) else fault_inject)
+        self._retry = retry if retry is not None else RetryPolicy()
+        self._fault_stats: Dict[str, float] = {}
         if digest not in DIGESTS:
             raise ValueError(f"unknown digest {digest!r}; "
                              f"expected one of {sorted(DIGESTS)}")
@@ -184,22 +235,38 @@ class GedEngine:
                 config = dataclasses.replace(config,
                                              use_kernel=self._kernel_default)
         self.config = config
+        # a backend registered without ``ctx`` in its run() signature
+        # keeps working: the context is passed only when it is named
+        try:
+            self._backend_takes_ctx = "ctx" in inspect.signature(
+                self._backend.run).parameters
+        except (TypeError, ValueError):            # pragma: no cover
+            self._backend_takes_ctx = False
 
     def compute(self, pairs, vocab: Optional[Vocab] = None,
+                deadline_s: Union[None, float, Deadline] = None,
+                per_pair_deadline_s: Optional[float] = None,
                 **config_overrides) -> List[GedOutcome]:
         """Exact-with-certificate GED for every pair.
 
-        ``vocab`` overrides the engine's label universe for this call only.
+        ``vocab`` overrides the engine's label universe for this call
+        only; ``deadline_s`` / ``per_pair_deadline_s`` override the
+        engine's budgets for this call.
         """
-        return self._run(pairs, None, False, config_overrides, vocab)
+        return self._run(pairs, None, False, config_overrides, vocab,
+                         deadline_s, per_pair_deadline_s)
 
     def verify(self, pairs, tau: Taus, vocab: Optional[Vocab] = None,
+               deadline_s: Union[None, float, Deadline] = None,
+               per_pair_deadline_s: Optional[float] = None,
                **config_overrides) -> List[GedOutcome]:
         """Certified ``delta(q, g) <= tau``? for every pair.
 
-        ``tau`` is a scalar (broadcast) or one threshold per pair.
+        ``tau`` is a scalar (broadcast) or one threshold per pair; the
+        other arguments as in :meth:`compute`.
         """
-        return self._run(pairs, tau, True, config_overrides, vocab)
+        return self._run(pairs, tau, True, config_overrides, vocab,
+                         deadline_s, per_pair_deadline_s)
 
     def submit(self, q, g, tau: Optional[float] = None) -> int:
         """Enqueue one pair (verification when ``tau`` is given, otherwise
@@ -218,30 +285,37 @@ class GedEngine:
         self._pending.append((q, g, None if tau is None else float(tau)))
         return len(self._pending) - 1
 
-    def flush(self, deadline_s: Optional[float] = None,
+    def flush(self, deadline_s: Union[None, float, Deadline] = None,
               per_pair_deadline_s: Optional[float] = None
               ) -> List[GedOutcome]:
         """Answer every submitted pair, in submission order.
 
         Computation and verification submissions come back as one list
         aligned with the tickets :meth:`submit` returned; a drained engine
-        flushes to ``[]``.  The reference's flush-level deadlines are not
-        ported yet: passing one raises ``TypeError``.
+        flushes to ``[]``.  ``deadline_s`` is one budget for the whole
+        flush: the computation and verification sub-batches draw from the
+        same clock.
         """
-        _refuse_unported({k for k, v in (
-            ("deadline_s", deadline_s),
-            ("per_pair_deadline_s", per_pair_deadline_s)) if v is not None})
         pending, self._pending = self._pending, []
+        if not pending:
+            return []
+        dl = deadline_s if deadline_s is not None else self.deadline_s
+        shared = dl if isinstance(dl, Deadline) or dl is None \
+            else Deadline(dl)
         results: List[Optional[GedOutcome]] = [None] * len(pending)
         comp = [i for i, (_, _, tau) in enumerate(pending) if tau is None]
         veri = [i for i, (_, _, tau) in enumerate(pending) if tau is not None]
         if comp:
-            outs = self.compute([pending[i][:2] for i in comp])
+            outs = self.compute([pending[i][:2] for i in comp],
+                                deadline_s=shared,
+                                per_pair_deadline_s=per_pair_deadline_s)
             for i, o in zip(comp, outs):
                 results[i] = o
         if veri:
             outs = self.verify([pending[i][:2] for i in veri],
-                               [pending[i][2] for i in veri])
+                               [pending[i][2] for i in veri],
+                               deadline_s=shared,
+                               per_pair_deadline_s=per_pair_deadline_s)
             for i, o in zip(veri, outs):
                 results[i] = o
         return results  # type: ignore[return-value]
@@ -259,8 +333,10 @@ class GedEngine:
         cache's ``result_cache_*`` and ``index_pivot_*`` counters (with
         ``cache=True``), the shared tier's ``shared_cache_*`` (with a
         ``shared_cache_dir``), the kernel build's ``persistent_cache_*``
-        (with a ``compile_cache_dir``) and the tuning table's
-        ``autotune_*`` counters.
+        (with a ``compile_cache_dir``), the tuning table's
+        ``autotune_*`` counters, and the robustness counters
+        (``retries``, ``degraded_host``, ``fault_*``, ``timed_out_pairs``)
+        once the event has happened.
 
         >>> from repro_torch import ged
         >>> eng = ged.GedEngine("exact", device="cpu")
@@ -285,6 +361,9 @@ class GedEngine:
             out["shared_cache_evictions"] = self._shared.evictions
             out["shared_cache_entries"] = self._shared.entries()
             out["shared_cache_lock_timeouts"] = self._shared.lock_timeouts
+        # robustness counters accumulated across runs; an absent key means
+        # nothing happened
+        out.update(self._fault_stats)
         out.update(persistent_cache_stats())
         out.update(autotune_stats())
         return out
@@ -326,7 +405,10 @@ class GedEngine:
         return None
 
     def _run(self, pairs, tau: Optional[Taus], verification: bool,
-             overrides: dict, vocab: Optional[Vocab]) -> List[GedOutcome]:
+             overrides: dict, vocab: Optional[Vocab],
+             deadline_s: Union[None, float, Deadline] = None,
+             per_pair_deadline_s: Optional[float] = None
+             ) -> List[GedOutcome]:
         _refuse_unported(overrides)
         unknown = set(overrides) - _CONFIG_FIELDS
         if unknown:
@@ -386,9 +468,30 @@ class GedEngine:
                 [pairs[i] for i in run_idx], slots=self.slots,
                 vocab=vocab if vocab is not None else self.vocab,
                 batch_multiple=self.batch_multiple)
-            outs = self._backend.run(plan, taus[run_idx], verification, cfg)
+            dl = deadline_s if deadline_s is not None else self.deadline_s
+            pp = (per_pair_deadline_s if per_pair_deadline_s is not None
+                  else self.per_pair_deadline_s)
+            ctx = RunContext(
+                deadline=dl if isinstance(dl, Deadline) else Deadline(dl),
+                per_pair_deadline_s=pp, injector=self._injector,
+                retry=self._retry)
+            if self._backend_takes_ctx:
+                outs = self._backend.run(plan, taus[run_idx], verification,
+                                         cfg, ctx=ctx)
+            else:
+                outs = self._backend.run(plan, taus[run_idx], verification,
+                                         cfg)
+            for k, v in ctx.stats.items():
+                self._fault_stats[k] = self._fault_stats.get(k, 0) + v
             for i, o in zip(run_idx, outs):
                 results[i] = o
+                # never cache a timed-out or fault-degraded uncertified
+                # answer: a later unconstrained run must not be poisoned by
+                # this run's budget or faults (degraded but certified
+                # answers are exact, so they stay cacheable)
+                if o.timed_out or (not o.certified
+                                   and o.stats.get("degraded")):
+                    continue
                 if self._cache is not None:
                     self._cache.put(keys[i], self._cache_view(o))
                 if self._shared is not None:

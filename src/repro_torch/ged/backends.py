@@ -20,10 +20,16 @@ the executor (:mod:`repro_torch.ged.exec`) owns the device.
   device the kernel wrappers use their plain twins.
 
 The reference's ``"sharded"`` backend is still to port (``ROADMAP.md``,
-queue 1).  A failed dispatch raises: the reference's degradation to the
-host solver comes with the faults slice, and never hides a failed kernel
-behind its plain twin.  New backends register with
-:func:`register_backend`.
+queue 1).  Backends take an optional ``ctx``
+(:class:`repro_torch.ged.faults.RunContext`): the deadline (a pair the
+budget never reached answers uncertified with admissible bounds,
+``timed_out``), the fault injector and the retry policy.  A bucket whose
+dispatch fails permanently degrades to the host solver
+(``degraded_host``); a failed host solve answers from the admissible
+floor.  On the card only injected faults degrade
+(:func:`repro_torch.ged.faults.degradable`): a real kernel or CUDA failure
+is raised.  Nothing swaps a failed kernel for its plain twin.  New backends
+register with :func:`register_backend`.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import numpy as np
 from repro_torch.core.engine.search import EngineConfig
 from repro_torch.core.exact.search import ged as exact_ged
 from repro_torch.core.exact.search import ged_verify
+from repro_torch.ged import faults
 from repro_torch.ged.exec import Executor, PendingBatch, engine_outcome
 from repro_torch.ged.plan import Bucket, Plan
 from repro_torch.ged.results import GedOutcome
@@ -55,7 +62,12 @@ class Backend(Protocol):
     def run(self, plan: Plan, taus: np.ndarray, verification: bool,
             cfg: EngineConfig) -> List[GedOutcome]:
         """Answer every pair in ``plan`` (in order); ``taus`` is aligned
-        with ``plan.pairs`` (zeros in computation mode)."""
+        with ``plan.pairs`` (zeros in computation mode).
+
+        A backend may also take ``ctx`` (keyword,
+        :class:`repro_torch.ged.faults.RunContext`) to honour deadlines
+        and the fault machinery; the facade passes it only when the
+        signature names it."""
         ...
 
 
@@ -84,16 +96,60 @@ def _host_verify_outcome(res, tau: float, backend: str, wall_s: float,
 
 
 def host_solve(q, g, tau: Optional[float], verification: bool,
-               cfg: EngineConfig, backend: str, rung: int) -> GedOutcome:
-    """One pair through the host solver (AStar+/DFS+ with BMa): certified."""
+               cfg: EngineConfig, backend: str, rung: int,
+               ctx: Optional[faults.RunContext] = None) -> GedOutcome:
+    """One pair through the host solver (AStar+/DFS+ with BMa), under the
+    robustness context; the reference's ``_robust_host_solve``.
+
+    ``ctx=None`` runs without a deadline: certified unless a ``host``
+    fault is injected process-wide.  With a context the pair runs
+    under :meth:`RunContext.pair_deadline` (checked inside the search
+    loop), and a timed-out search becomes a sound uncertified best-so-far
+    outcome.  The ``host`` fault site simulates a solver failure, which —
+    the host solver being the ladder's last step — degrades to the cheap
+    admissible floor.
+    """
     t0 = time.perf_counter()
+    inj = faults.get_injector(ctx)
+    if inj is not None:
+        try:
+            inj.check("host", rung)
+        except Exception:
+            if ctx is not None:
+                ctx.bump("fault_host")
+            faults.warn_once(
+                "host-fault",
+                "host solver failed (injected or real); answering from "
+                "the cheap admissible floor, uncertified")
+            out = faults.fallback_outcome(
+                q, g, verification, tau, backend, timed_out=False,
+                stats={"rung": rung, "degraded": True})
+            out.wall_s = time.perf_counter() - t0
+            return out
+    deadline = None
+    if ctx is not None and (ctx.has_deadline
+                            or ctx.per_pair_deadline_s is not None):
+        deadline = ctx.pair_deadline()
     if verification:
-        res = ged_verify(q, g, float(tau), bound="BMa", strategy=cfg.strategy)
-        return _host_verify_outcome(res, float(tau), backend,
-                                    time.perf_counter() - t0, rung=rung)
-    res = exact_ged(q, g, bound="BMa", strategy=cfg.strategy)
-    return _host_compute_outcome(res, backend, time.perf_counter() - t0,
-                                 rung=rung)
+        res = ged_verify(q, g, float(tau), bound="BMa",
+                         strategy=cfg.strategy, deadline=deadline)
+    else:
+        res = exact_ged(q, g, bound="BMa", strategy=cfg.strategy,
+                        deadline=deadline)
+    wall = time.perf_counter() - t0
+    if getattr(res, "timed_out", False):
+        if ctx is not None:
+            ctx.bump("timed_out_pairs")
+        out = faults.fallback_outcome(
+            q, g, verification, tau, backend,
+            lower_bound=res.lower_bound, upper_bound=res.upper_bound,
+            stats={"rung": rung, "expanded": res.stats.expanded})
+        out.wall_s = wall
+        return out
+    if verification:
+        return _host_verify_outcome(res, float(tau), backend, wall,
+                                    rung=rung)
+    return _host_compute_outcome(res, backend, wall, rung=rung)
 
 
 class ExactBackend:
@@ -112,10 +168,21 @@ class ExactBackend:
     batch_multiple = 1     # host solver: no device batch shape to satisfy
 
     def run(self, plan: Plan, taus: np.ndarray, verification: bool,
-            cfg: EngineConfig) -> List[GedOutcome]:
-        return [host_solve(q, g, float(taus[i]) if verification else None,
-                           verification, cfg, self.name, 0)
-                for i, (q, g) in enumerate(plan.pairs)]
+            cfg: EngineConfig, ctx: Optional[faults.RunContext] = None
+            ) -> List[GedOutcome]:
+        outcomes: List[GedOutcome] = []
+        for i, (q, g) in enumerate(plan.pairs):
+            tau = float(taus[i]) if verification else None
+            if ctx is not None and ctx.expired():
+                # budget already spent: cheap admissible floor, no search
+                ctx.bump("timed_out_pairs")
+                outcomes.append(faults.fallback_outcome(
+                    q, g, verification, tau, self.name,
+                    stats={"rung": 0}))
+                continue
+            outcomes.append(host_solve(
+                q, g, tau, verification, cfg, self.name, 0, ctx))
+        return outcomes
 
 
 # --------------------------------------------------------- batched engine
@@ -138,17 +205,55 @@ class EngineBackend:
         return self.executor.batch_multiple
 
     def run(self, plan: Plan, taus: np.ndarray, verification: bool,
-            cfg: EngineConfig) -> List[GedOutcome]:
+            cfg: EngineConfig, ctx: Optional[faults.RunContext] = None
+            ) -> List[GedOutcome]:
         results: List[Optional[GedOutcome]] = [None] * len(plan.pairs)
         for bucket in plan.buckets:
             t0 = time.perf_counter()
-            out = self.executor.run_bucket(bucket, taus, cfg, verification)
+            if ctx is not None and ctx.expired():
+                # deadline gone: remaining buckets answer from the cheap
+                # admissible floor (one dispatch is the unit of work)
+                for gi in bucket.indices:
+                    ctx.bump("timed_out_pairs")
+                    q, g = plan.pairs[gi]
+                    results[gi] = faults.fallback_outcome(
+                        q, g, verification,
+                        float(taus[gi]) if verification else None,
+                        self.name, stats={"rung": 0})
+                continue
+            try:
+                pending = self.executor.run_bucket_async(
+                    bucket, taus, cfg, verification, ctx=ctx, rung=0)
+                out = pending.result()
+            except Exception as exc:
+                if not faults.degradable(exc, self.executor.device):
+                    raise
+                # the engine is gone for this bucket: the ladder's next
+                # step is the certified host solver (never the plain twin
+                # of a failed kernel)
+                faults.warn_once(
+                    f"degrade-host-{self.name}",
+                    f"{self.name} backend: engine bucket failed "
+                    f"({exc!r}); degrading its pairs to the host solver")
+                for gi in bucket.indices:
+                    if ctx is not None:
+                        ctx.bump("degraded_host")
+                    q, g = plan.pairs[gi]
+                    o = host_solve(
+                        q, g, float(taus[gi]) if verification else None,
+                        verification, cfg, self.name, 0, ctx)
+                    o.stats["degraded"] = True
+                    results[gi] = o
+                continue
             wall = time.perf_counter() - t0
             for bi, gi in enumerate(bucket.indices):
-                results[gi] = engine_outcome(
+                o = engine_outcome(
                     out, bucket.packed, bi, verification,
                     float(taus[gi]) if verification else None,
                     self.name, wall, rung=0)
+                if pending.flags:
+                    o.stats.update(pending.flags)
+                results[gi] = o
         return results  # type: ignore[return-value]
 
 
@@ -185,9 +290,18 @@ class AutoBackend:
     ``overlap=False`` drains each batch as soon as it is dispatched.
     Outcomes are identical either way.
 
+    Under a deadline (``ctx``) the loop stops dispatching once it
+    expires, drains what is in flight and answers every pair it has not
+    certified with its best-so-far admissible bounds, uncertified and
+    ``timed_out``.  A bucket whose dispatch or result fails permanently
+    goes to the host solver (``degraded_host``); on the card only an
+    injected fault does, a real failure is raised after what is in flight
+    has drained.
+
     ``stats``: ``pairs``, ``escalated``, ``host_solved``, ``batches``,
     ``dispatches``, ``overlap_saved_s`` (host seconds a batch spent in
-    flight outside any blocking drain) and ``survivors_rung_{k}``.  The
+    flight outside any blocking drain), ``survivors_rung_{k}``, and
+    ``degraded_host`` / ``timed_out_pairs`` once they happen.  The
     search loop reads its termination flag every iteration, so on the card
     a batch has finished when its dispatch returns and ``overlap_saved_s``
     stays near 0.
@@ -221,7 +335,8 @@ class AutoBackend:
         return self.executor.batch_multiple
 
     def run(self, plan: Plan, taus: np.ndarray, verification: bool,
-            cfg: EngineConfig) -> List[GedOutcome]:
+            cfg: EngineConfig, ctx: Optional[faults.RunContext] = None
+            ) -> List[GedOutcome]:
         results: List[Optional[GedOutcome]] = [None] * len(plan.pairs)
         diffs = [difficulty(q.n, g.n, q.m, g.m, q.vlabels, g.vlabels,
                             tau=float(taus[i]) if verification else None)
@@ -232,13 +347,57 @@ class AutoBackend:
         dispatchable: "collections.deque" = collections.deque()  # (bucket, rung)
         inflight: "collections.deque[_InFlight]" = collections.deque()
         last_block_end: Optional[float] = None  # end of last blocking drain
+        has_deadline = ctx is not None and ctx.has_deadline
+        # best-so-far admissible bounds per surviving pair, merged across
+        # rungs (anytime contract); kept only under a deadline, from the
+        # rows drain already holds as numpy, so the no-deadline path does
+        # no extra work
+        best: Dict[int, tuple] = {}
+        degraded: set = set()               # pairs routed around a fault
+
+        def merge_best(gi: int, lb: float, ub: float) -> None:
+            plb, pub = best.get(gi, (0.0, float("inf")))
+            best[gi] = (max(plb, lb), min(pub, ub))
 
         def solve_host(gi: int) -> None:
             q, g = plan.pairs[gi]
             self.stats["host_solved"] += 1
-            results[gi] = host_solve(
+            o = host_solve(
                 q, g, float(taus[gi]) if verification else None,
-                verification, cfg, f"{self.name}/exact", -1)
+                verification, cfg, f"{self.name}/exact", -1, ctx)
+            if gi in degraded:
+                o.stats["degraded"] = True
+            if not o.certified and gi in best:
+                # fold the engine rungs' best-so-far bounds into an
+                # uncertified answer (both sides admissible: still sound)
+                lb, ub = best[gi]
+                o.lower_bound = max(o.lower_bound, lb)
+                o.upper_bound = min(o.upper_bound, ub)
+                o.lower_bound = min(o.lower_bound, o.upper_bound)
+                if verification and o.similar is None:
+                    if o.lower_bound > float(taus[gi]):
+                        o.similar = False
+                    elif o.upper_bound <= float(taus[gi]):
+                        o.similar = True
+            results[gi] = o
+
+        def degrade_bucket(bucket: Bucket, exc: Exception) -> None:
+            # the engine rung is gone for these pairs: route them to the
+            # ladder's next step, the host solver, instead of failing the
+            # whole run; a real failure on the card is raised instead
+            if not faults.degradable(exc, self.executor.device):
+                raise exc
+            fresh = [gi for gi in bucket.indices if results[gi] is None]
+            degraded.update(fresh)
+            host_queue.extend(fresh)
+            self.stats["degraded_host"] = \
+                self.stats.get("degraded_host", 0) + len(fresh)
+            if ctx is not None:
+                ctx.bump("degraded_host", len(fresh))
+            faults.warn_once(
+                "degrade-host-auto",
+                f"auto backend: engine rung failed ({exc!r}); routing "
+                f"{len(fresh)} pairs to the host solver")
 
         def refill() -> None:
             # scheduler batches -> dispatchable rung buckets, regrouped by
@@ -258,17 +417,29 @@ class AutoBackend:
             rcfg = dataclasses.replace(cfg, pool=pool, expand=expand,
                                        max_iters=max_iters)
             self.stats["dispatches"] += 1
-            item = _InFlight(bucket, rung, self.executor.run_bucket_async(
-                bucket, taus, rcfg, verification), time.perf_counter())
+            try:
+                pending = self.executor.run_bucket_async(
+                    bucket, taus, rcfg, verification, ctx=ctx, rung=rung)
+            except Exception as exc:
+                degrade_bucket(bucket, exc)
+                return
+            item = _InFlight(bucket, rung, pending, time.perf_counter())
             if self.overlap:
                 inflight.append(item)
             else:
                 drain(item)             # sequential baseline: block now
 
         def drain(item: _InFlight) -> None:
+            # a batch that fails at materialisation degrades to the host
+            # solver; only a real failure on the card raises
             nonlocal last_block_end
             t_drain = time.perf_counter()
-            out = item.pending.result()     # blocks until the batch lands
+            try:
+                out = item.pending.result()  # blocks until the batch lands
+            except Exception as exc:
+                last_block_end = time.perf_counter()
+                degrade_bucket(item.bucket, exc)
+                return
             now = time.perf_counter()
             # per-batch wall: a pair's wall_s is the cost of its batch
             wall = now - item.t_dispatch
@@ -281,12 +452,22 @@ class AutoBackend:
             survivors = []
             for bi, gi in enumerate(item.bucket.indices):
                 if bool(out["exact"][bi]):
-                    results[gi] = engine_outcome(
+                    o = engine_outcome(
                         out, item.bucket.packed, bi, verification,
                         float(taus[gi]) if verification else None,
                         self.name, wall, rung=item.rung)
+                    if item.pending.flags:
+                        o.stats.update(item.pending.flags)
+                    results[gi] = o
                 else:
                     survivors.append(bi)
+                    if has_deadline:
+                        # the pool floor is admissible; the compute-mode
+                        # raw ged is the engine's incumbent full mapping
+                        merge_best(
+                            gi, float(out["lower_bound"][bi]),
+                            float("inf") if verification
+                            else float(out["ged"][bi]))
             skey = f"survivors_rung_{item.rung}"
             self.stats[skey] = self.stats.get(skey, 0) + len(survivors)
             if survivors:
@@ -297,19 +478,50 @@ class AutoBackend:
                 if nxt is not None:
                     queue.append(nxt)
 
-        while queue or dispatchable or inflight or host_queue:
-            refill()
-            # keep the device fed: dispatch while there's work and room
-            while dispatchable and len(inflight) < self.max_in_flight:
-                dispatch(*dispatchable.popleft())
+        expired = False
+        try:
+            while queue or dispatchable or inflight or host_queue:
+                if ctx is not None and ctx.expired():
+                    expired = True
+                    break
                 refill()
-            if inflight:
-                # host-solve while the oldest batch is in flight
-                while host_queue and not inflight[0].pending.ready():
+                # keep the device fed: dispatch while there's work and room
+                while dispatchable and len(inflight) < self.max_in_flight:
+                    dispatch(*dispatchable.popleft())
+                    refill()
+                if inflight:
+                    # host-solve while the oldest batch is in flight
+                    while host_queue and not inflight[0].pending.ready():
+                        if ctx is not None and ctx.expired():
+                            break
+                        solve_host(host_queue.pop(0))
+                    drain(inflight.popleft())
+                elif host_queue:
                     solve_host(host_queue.pop(0))
+        finally:
+            # never strand dispatched work or lose its survivors' bounds:
+            # on expiry or a mid-flight error, drain what is in flight
+            while inflight:
                 drain(inflight.popleft())
-            elif host_queue:
-                solve_host(host_queue.pop(0))
+        if expired or any(r is None for r in results):
+            # anytime tail: every pair the budget never reached answers
+            # with its best-so-far admissible bounds, uncertified
+            for gi, r in enumerate(results):
+                if r is not None:
+                    continue
+                q, g = plan.pairs[gi]
+                lb, ub = best.get(gi, (0.0, float("inf")))
+                o = faults.fallback_outcome(
+                    q, g, verification,
+                    float(taus[gi]) if verification else None,
+                    self.name, lower_bound=lb, upper_bound=ub)
+                if gi in degraded:
+                    o.stats["degraded"] = True
+                results[gi] = o
+                self.stats["timed_out_pairs"] = \
+                    self.stats.get("timed_out_pairs", 0) + 1
+                if ctx is not None:
+                    ctx.bump("timed_out_pairs")
         return results  # type: ignore[return-value]
 
 

@@ -17,8 +17,18 @@ Backends (:mod:`repro_torch.ged.backends`) are policies; everything about
 * :func:`enable_compile_cache` — the kernel library's build directory,
   the port's counterpart of the reference's persistent compile cache.
 
-The reference's retry and degradation ladder (``repro/ged/exec.py``) is
-not part of this layer yet; a kernel that fails to build or launch raises.
+Dispatch goes through :meth:`Executor._robust_dispatch`, the reference's
+retry loop: transient failures (:func:`repro_torch.ged.faults.classify_transient`)
+retry with backoff, and the ``dispatch`` / ``kernel`` / ``result`` fault
+sites fire there.  The port's degradation ladder starts below the kernels:
+it has no unfused step and never re-runs a bucket with ``use_kernel=False``
+after a kernel failure, so a :class:`PendingBatch` has no ``recover`` path
+and a permanent failure (a kernel that fails to build or launch, or a
+``kernel``- or ``result``-site fault) propagates to the backend.  The
+backend sends the bucket to the host solver (``degraded_host``) when the
+failure is injected or the device is the CPU, and raises it otherwise
+(:func:`repro_torch.ged.faults.degradable`).  The reference's
+``degraded_kernel`` never appears in the port's stats.
 """
 
 from __future__ import annotations
@@ -27,6 +37,7 @@ import collections
 import dataclasses
 import hashlib
 import os
+import time
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,6 +47,7 @@ from repro_torch.core.engine import api as engine_api
 from repro_torch.core.engine.search import EngineConfig
 from repro_torch.core.exact.graph import Graph
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.ged import faults
 from repro_torch.ged.plan import Bucket, Vocab, pack_bucket
 from repro_torch.ged.results import GedOutcome, engine_mapping
 from repro_torch.kernels import _build, autotune
@@ -105,6 +117,14 @@ class PendingBatch:
     is wrapped; ``ready`` is what the overlapped ``auto`` backend polls
     all the same.
 
+    ``check`` is the deterministic fault-injection hook of the
+    materialisation window (the ``result`` site), run before the
+    conversion; a failure there propagates (the port has no degraded
+    re-dispatch: the backend host-solves the pairs or raises, see
+    :func:`repro_torch.ged.faults.degradable`).  ``flags`` records
+    what the robust dispatch did (``retries``) so backends can fold it
+    into outcome stats.
+
     >>> p = PendingBatch({"ged": torch.zeros(2)})
     >>> p.ready()
     True
@@ -112,9 +132,12 @@ class PendingBatch:
     array([0., 0.], dtype=float32)
     """
 
-    def __init__(self, tensors: Dict[str, torch.Tensor]):
+    def __init__(self, tensors: Dict[str, torch.Tensor], check=None,
+                 flags: Optional[Dict[str, float]] = None):
         self._tensors = tensors
         self._result: Optional[Dict[str, np.ndarray]] = None
+        self._check = check
+        self.flags: Dict[str, float] = {} if flags is None else flags
         self._event = None
         devices = {t.device for t in tensors.values()}
         if len(devices) == 1 and next(iter(devices)).type == "cuda":
@@ -130,6 +153,8 @@ class PendingBatch:
     def result(self) -> Dict[str, np.ndarray]:
         """Block until the batch lands; numpy result dict (cached)."""
         if self._result is None:
+            if self._check is not None:
+                self._check()
             self._result = {k: v.cpu().numpy()
                             for k, v in self._tensors.items()}
             self._tensors = None
@@ -160,36 +185,82 @@ class Executor:
         return pack_bucket(pairs, slots, vocab, self.batch_multiple)
 
     def run_packed_async(self, packed, taus: np.ndarray, cfg: EngineConfig,
-                         verification: bool, real: Optional[int] = None
-                         ) -> PendingBatch:
+                         verification: bool, real: Optional[int] = None,
+                         ctx: Optional[faults.RunContext] = None,
+                         rung: Optional[int] = None) -> PendingBatch:
         """Dispatch one engine invocation; ``real`` — pairs before batch
         padding, for the ``pairs`` counter.
 
         ``use_kernel="auto"`` resolves to a concrete per-bucket kernel
         plan here, from the tuning table for this device (or the static
         heuristic for unmeasured shapes).  Outcomes are bit-identical
-        across plans.
+        across plans.  ``ctx`` — the engine's
+        :class:`~repro_torch.ged.faults.RunContext` (retry policy, fault
+        injector, counters); ``rung`` labels the dispatch for rung-scoped
+        fault specs.  Both default to off.
         """
         cfg = autotune.resolve_config(cfg, packed.slots, packed.batch,
                                       self.device)
         self.stats["calls"] += 1
         self.stats["pairs"] += packed.batch if real is None else int(real)
-        return PendingBatch(engine_api.dispatch_packed(
-            packed, taus, cfg, verification, device=self.device))
+        return self._robust_dispatch(packed, taus, cfg, verification, ctx,
+                                     rung)
+
+    def _robust_dispatch(self, packed, taus, cfg, verification, ctx,
+                         rung) -> PendingBatch:
+        """Dispatch with the retry policy.
+
+        Transient failures retry with exponential backoff and jitter
+        (:class:`~repro_torch.ged.faults.RetryPolicy`); a permanent
+        failure, or a transient one past ``max_retries``, counts
+        ``fault_dispatch`` and propagates to the backend above (see
+        :func:`~repro_torch.ged.faults.degradable`).  The port has no unfused step, so a
+        kernel failure is never retried with ``use_kernel=False``.  On a
+        clean dispatch this is the plain path: the ``try`` costs nothing
+        unless something raises.
+        """
+        inj = faults.get_injector(ctx)
+        retry = ctx.retry if ctx is not None else faults.RetryPolicy()
+
+        def bump(key: str, by: float = 1) -> None:
+            self.stats[key] = self.stats.get(key, 0) + by
+            if ctx is not None:
+                ctx.bump(key, by)
+
+        flags: Dict[str, float] = {}
+        attempt = 0
+        while True:
+            try:
+                if inj is not None:
+                    inj.check("dispatch", rung)
+                    if bool(cfg.use_kernel):
+                        inj.check("kernel", rung)
+                tensors = engine_api.dispatch_packed(
+                    packed, taus, cfg, verification, device=self.device)
+                check = None
+                if inj is not None:
+                    check = (lambda: inj.check("result", rung))
+                return PendingBatch(tensors, check=check, flags=flags)
+            except Exception as exc:
+                if (faults.classify_transient(exc)
+                        and attempt < retry.max_retries):
+                    bump("retries")
+                    flags["retries"] = flags.get("retries", 0) + 1
+                    time.sleep(retry.backoff_s(attempt))
+                    attempt += 1
+                    continue
+                bump("fault_dispatch")
+                raise
 
     def run_bucket_async(self, bucket: Bucket, taus: np.ndarray,
-                         cfg: EngineConfig, verification: bool
-                         ) -> PendingBatch:
+                         cfg: EngineConfig, verification: bool,
+                         ctx: Optional[faults.RunContext] = None,
+                         rung: Optional[int] = None) -> PendingBatch:
         """Dispatch one plan bucket; ``taus`` is the plan-global per-pair
-        array."""
+        array.  ``ctx`` / ``rung`` as in :meth:`run_packed_async`."""
         return self.run_packed_async(bucket.packed, bucket.pad_values(taus),
-                                     cfg, verification, real=bucket.real)
-
-    def run_bucket(self, bucket: Bucket, taus: np.ndarray, cfg: EngineConfig,
-                   verification: bool) -> Dict[str, np.ndarray]:
-        """Run one plan bucket and wait for it; numpy result dict."""
-        return self.run_bucket_async(bucket, taus, cfg,
-                                     verification).result()
+                                     cfg, verification, real=bucket.real,
+                                     ctx=ctx, rung=rung)
 
 
 def engine_outcome(out: Dict[str, np.ndarray], packed, bi: int,

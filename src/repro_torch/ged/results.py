@@ -29,7 +29,8 @@ class GedOutcome:
       ``None`` when the backend produced no full mapping.
     * ``backend`` — which registry entry produced the answer.
     * ``stats`` — backend-specific diagnostics (engine iterations,
-      expanded states, ...).  Informational only.
+      expanded states, ...), and ``timed_out`` / ``degraded`` under a
+      deadline or a fault (:attr:`timed_out`, :attr:`degraded`).
 
     >>> o = GedOutcome(ged=2.0, similar=None, certified=True,
     ...                lower_bound=2.0, upper_bound=2.0, mapping=None,
@@ -53,6 +54,27 @@ class GedOutcome:
     def rung(self) -> int:
         """Escalation rung that answered (0 for the engine backends)."""
         return int(self.stats.get("rung", 0))
+
+    @property
+    def timed_out(self) -> bool:
+        """The deadline expired before this pair was certified.
+
+        The bounds are still admissible (best-so-far anytime contract,
+        :mod:`repro_torch.ged.faults`); ``certified`` is always ``False``
+        when this is set.
+        """
+        return bool(self.stats.get("timed_out", False))
+
+    @property
+    def degraded(self) -> bool:
+        """A fault forced this pair down the degradation ladder.
+
+        The answer itself is unaffected: the port's ladder goes from the
+        engine to the host solver, which is exact, and from a failed host
+        solve to the admissible floor, uncertified.  The flag marks that
+        the preferred execution path failed.
+        """
+        return bool(self.stats.get("degraded", False))
 
 
 def engine_mapping(order_row: np.ndarray, img_row: np.ndarray,

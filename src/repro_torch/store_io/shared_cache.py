@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
-import logging
 import os
 import struct
 from typing import TYPE_CHECKING, Dict, Optional
@@ -49,25 +48,6 @@ __all__ = ["SharedResultCache", "SHARED_CACHE_ENV"]
 SHARED_CACHE_ENV = "REPRO_GED_SHARED_CACHE_DIR"
 _SCHEMA_VERSION = 1
 _INF = float("inf")
-
-_LOG = logging.getLogger(__name__)
-_WARNED: set = set()
-
-
-def warn_once(key: str, message: str) -> bool:
-    """Log ``message`` at WARNING level once per process per ``key``;
-    returns whether it was emitted.
-
-    >>> warn_once("doctest-demo", "something degraded")
-    True
-    >>> warn_once("doctest-demo", "something degraded")   # suppressed
-    False
-    """
-    if key in _WARNED:
-        return False
-    _WARNED.add(key)
-    _LOG.warning(message)
-    return True
 
 
 def _encode(value: Optional[float]):
@@ -192,6 +172,7 @@ class SharedResultCache:
             "tau": _encode(outcome.tau),
         }
         try:
+            self._check_lock_fault()
             with file_lock(self._lock_path, timeout=self.lock_timeout_s):
                 atomic_write_json(self._path(key), payload, indent=0)
                 self._puts += 1
@@ -204,12 +185,29 @@ class SharedResultCache:
             # eviction sweep needs mutual exclusion, so skip it and count
             # the event (shared_cache_lock_timeouts).
             self.lock_timeouts += 1
+            # lazy import: this module must stay importable without
+            # repro_torch.ged, which imports it
+            from repro_torch.ged.faults import warn_once
             warn_once("shared-cache-lock",
                       f"shared result cache lock {self._lock_path!r} "
                       f"timed out after {self.lock_timeout_s:g}s; "
                       "writing without eviction sweep (fail-open)")
             atomic_write_json(self._path(key), payload, indent=0)
         return True
+
+    def _check_lock_fault(self) -> None:
+        """The ``lock`` fault site: an injected fault simulates a dead
+        peer by raising the timeout path directly (lazy import: this
+        module must stay importable without ``repro_torch.ged``)."""
+        from repro_torch.ged.faults import get_injector
+        inj = get_injector()
+        if inj is not None:
+            try:
+                inj.check("lock")
+            except Exception as exc:
+                raise LockTimeout(
+                    f"injected lock timeout on {self._lock_path!r}"
+                ) from exc
 
     def entries(self) -> int:
         """Current on-disk entry count (directory scan; stats path only)."""

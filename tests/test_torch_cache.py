@@ -279,13 +279,21 @@ def test_submit_flush_order_and_modes_equal_the_reference():
 
 @pytest.mark.parametrize("option", ["deadline_s", "per_pair_deadline_s"])
 def test_flush_deadlines_are_not_ported_yet(option):
-    eng = ged.GedEngine("exact", device="cpu")
+    """The flush-level budgets are ported: ``flush(**{option: 1.0})``
+    answers like the reference's flush given the same budget (the pair
+    is small enough to certify well inside it), and the engine is
+    drained after it."""
     pair = _pairs(6, 1)[0]
-    eng.submit(*pair)
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        eng.flush(**{option: 1.0})
-    assert [o.ged for o in eng.flush()] == \
+    port, ref = _engines("exact")
+    for eng in (port, ref):
+        eng.submit(*pair)
+    got, want = port.flush(**{option: 1.0}), ref.flush(**{option: 1.0})
+    assert len(got) == len(want) == 1
+    _same(got[0], want[0])
+    assert got[0].certified and not got[0].timed_out
+    assert [o.ged for o in got] == \
         [o.ged for o in ref_ged.GedEngine("exact").compute([pair])]
+    assert port.flush() == [] and ref.flush() == []
 
 
 # ------------------------------------------------------ distance reuse

@@ -478,3 +478,86 @@ def test_merge_ranks_sorted_signed_zeros_equal_its_twin(card, na, nb):
     assert kops.launch_counts()["merge_ranks"] == 1
     for x, y in zip(got, ref.merge_ranks_ref(a, b)):
         assert torch.equal(x, y)
+
+
+# ------------------------------------------------- deadlines and faults
+
+def _fields(o):
+    return (o.ged, o.similar, o.certified, o.lower_bound, o.upper_bound,
+            o.stats)
+
+
+@pytest.mark.parametrize("backend", ["cuda", "auto"])
+def test_roomy_deadline_changes_no_outcome_and_no_launch(card, backend):
+    """``deadline_s=3600`` on the card: the same outcomes and the same
+    launch counts as the same engine without a deadline, and no
+    robustness counter in the stats."""
+    pairs = _pairs(np.random.default_rng(21), 12, 4, 14)
+    cfg = dict(cache=False, pool=128, expand=4, max_iters=64)
+    if backend == "auto":
+        cfg = dict(cache=False, use_kernel=True)
+    runs = []
+    for extra in ({}, {"deadline_s": 3600.0}):
+        eng = ged.GedEngine(backend, device=card, **cfg, **extra)
+        kops.reset_launch_counts()
+        outs = eng.compute(pairs) + eng.verify(pairs, 2.0)
+        runs.append((outs, kops.launch_counts(), eng.stats))
+    (plain, plain_n, _), (roomy, roomy_n, stats) = runs
+    assert plain_n == roomy_n and plain_n["reduced_top2"] > 0
+    assert [_fields(o) for o in plain] == [_fields(o) for o in roomy]
+    assert not any(o.timed_out or o.degraded for o in roomy)
+    assert not [k for k in stats if k.removeprefix("executor_").startswith(
+        ("retries", "fault_", "degraded_", "timed_out_pairs"))]
+
+
+def test_kernel_fault_launches_nothing_and_host_solves(card):
+    """``kernel@times=inf`` on ``"cuda"``: the kernel site fires before
+    any launch, so no kernel runs on the card; every bucket goes to the
+    host solver (``degraded_host``), whose answers are certified and
+    equal the clean run's."""
+    pairs = _pairs(np.random.default_rng(22), 8, 4, 12)
+    cfg = dict(cache=False, pool=128, expand=4, max_iters=64)
+    clean = ged.GedEngine("cuda", device=card, **cfg).compute(pairs)
+    eng = ged.GedEngine("cuda", device=card, fault_inject="kernel@times=inf",
+                        **cfg)
+    kops.reset_launch_counts()
+    outs = eng.compute(pairs)
+    assert set(kops.launch_counts().values()) == {0}
+    assert eng.stats["degraded_host"] == len(pairs)
+    assert "degraded_kernel" not in eng.stats
+    for a, b in zip(clean, outs):
+        assert b.certified and b.degraded
+        if a.certified:
+            assert a.ged == b.ged
+
+
+@pytest.mark.parametrize("backend", ["cuda", "auto"])
+def test_kernel_build_failure_raises_on_the_card(card, backend,
+                                                 monkeypatch):
+    """A kernel library that does not build is a real failure, not a
+    fault to degrade: ``compute`` raises, and no pair goes to the host
+    solver."""
+    from repro_torch.kernels import _build
+
+    def no_library():
+        raise RuntimeError("nvcc failed for ['lsa_children.cu']")
+
+    monkeypatch.setattr(_build, "library", no_library)
+    pairs = _pairs(np.random.default_rng(24), 4, 4, 12)
+    eng = ged.GedEngine(backend, device=card, cache=False, use_kernel=True)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        eng.compute(pairs)
+    assert "degraded_host" not in eng.stats
+
+
+@pytest.mark.parametrize("backend", ["cuda", "auto"])
+def test_expired_deadline_launches_nothing(card, backend):
+    """``deadline_s=0`` on the card: every pair answers timed out with the
+    admissible floor, and no kernel is launched."""
+    pairs = _pairs(np.random.default_rng(23), 8, 4, 12)
+    eng = ged.GedEngine(backend, device=card, cache=False, deadline_s=0.0)
+    kops.reset_launch_counts()
+    outs = eng.compute(pairs) + eng.verify(pairs, 2.0)
+    assert set(kops.launch_counts().values()) == {0}
+    assert all(o.timed_out and not o.certified for o in outs)
+    assert eng.stats["timed_out_pairs"] == 2 * len(pairs)

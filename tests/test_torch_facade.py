@@ -152,28 +152,38 @@ def test_auto_and_exact_backends_work_and_auto_is_the_default(name):
     "cache", "shared_cache_dir", "deadline_s", "retry", "fault_inject",
     "digest", "mesh"])
 def test_unported_options_raise_type_error(option, monkeypatch):
-    """``deadline_s``, ``retry``, ``fault_inject`` and ``mesh`` are not
-    ported: the engine and a call given one raise ``TypeError`` naming
-    ROADMAP.md.  ``cache``, ``shared_cache_dir`` and ``digest`` are ported
-    engine options, so given ``None`` the port does what the reference
-    does: ``cache=None`` and ``shared_cache_dir=None`` are accepted and
-    answer like the reference, ``digest=None`` raises ``ValueError`` in
-    both packages, and per call (they are engine options, not
-    ``EngineConfig`` fields) both raise ``TypeError`` for unknown engine
-    options."""
+    """``mesh`` is the one reference option not ported: the engine and a
+    call given it raise ``TypeError`` naming ROADMAP.md.  The others are
+    ported engine options, so given ``None`` the port does what the
+    reference does: ``cache=None``, ``shared_cache_dir=None``,
+    ``deadline_s=None``, ``retry=None`` and ``fault_inject=None`` are
+    accepted and answer like the reference, ``digest=None`` raises
+    ``ValueError`` in both packages.  Per call, ``deadline_s=None`` is a
+    keyword of ``compute`` in both packages and answers like the
+    reference; the rest are engine options, not ``EngineConfig`` fields,
+    so both raise ``TypeError`` for unknown engine options."""
     monkeypatch.delenv(SHARED_CACHE_ENV, raising=False)
     pairs = _workload(1, 1, 3, 4)
     eng = ged.GedEngine("torch", device="cpu", **SMALL)
-    if option not in ("cache", "shared_cache_dir", "digest"):
+    if option == "mesh":
         with pytest.raises(TypeError, match="ROADMAP.md"):
             ged.GedEngine(device="cpu", **{option: None})
         with pytest.raises(TypeError, match="ROADMAP.md"):
             eng.compute(pairs, **{option: None})
         return
-    ref = ref_ged.GedEngine("jax", slots=8, **SMALL)
-    for e in (eng, ref):
-        with pytest.raises(TypeError, match="unknown engine options"):
-            e.compute(pairs, **{option: None})
+    if option == "deadline_s":
+        ref = ref_ged.GedEngine("jax", slots=8, cache=False, **SMALL)
+        port = ged.GedEngine("torch", device="cpu", slots=8, cache=False,
+                             **SMALL)
+        for a, b in zip(port.compute(pairs, deadline_s=None),
+                        ref.compute(pairs, deadline_s=None)):
+            _same(a, b)
+            assert not a.timed_out and not b.timed_out
+    else:
+        ref = ref_ged.GedEngine("jax", slots=8, **SMALL)
+        for e in (eng, ref):
+            with pytest.raises(TypeError, match="unknown engine options"):
+                e.compute(pairs, **{option: None})
     if option == "digest":
         for make in (lambda: ged.GedEngine(device="cpu", digest=None),
                      lambda: ref_ged.GedEngine("jax", digest=None)):
@@ -187,7 +197,9 @@ def test_unported_options_raise_type_error(option, monkeypatch):
         for a, b in zip(port.compute(pairs), ref.compute(pairs)):
             _same(a, b)
             assert a.stats.get("cached") == b.stats.get("cached")
-    for key in ("result_cache_hits", "shared_cache_hits"):
+            assert (a.timed_out, a.degraded) == (b.timed_out, b.degraded)
+    for key in ("result_cache_hits", "shared_cache_hits", "retries",
+                "timed_out_pairs"):
         assert (key in port.stats) == (key in ref.stats), key
     assert port.shared_cache_dir is None and ref.shared_cache_dir is None
 
