@@ -20,7 +20,8 @@ nothing falls back to the CPU):
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
 3. every kernel against its plain PyTorch twin on the card, at the main
    path's shape (256 pairs x expand 8 = 2048 states, N = 32, Le = 3), on an
-   edgeless batch (Le = 0), at N = 64 and at the ``"auto"`` path's rung-0
+   edgeless batch (Le = 0), at N = 64, at N = 16 (the slot bucket of the
+   ``[store]`` phase's small graphs) and at the ``"auto"`` path's rung-0
    shapes (512 x 32, 128 x 64): ``torch.equal``, kernel and twin times
    (CUDA events, and device time from ``torch.profiler``), the
    memory/compute bound; for ``lsa_children`` and ``bma_cost_matrix`` at
@@ -84,8 +85,29 @@ nothing falls back to the CPU):
    and ``host`` faults (sound answers); and the caches (a ``lock`` fault
    fails open, a timed-out call caches nothing, ``flush(deadline_s=0)``
    answers every ticket timed out, in order);
-10. a ``{"kernels": [...]}`` JSON line, the card's name and power limit,
-    and as the last line ``{"ok": true, "device": {...}}``.
+10. ``[store]``, the corpus layer at the size of the AIDS antiviral
+    screen database: 42,687 AIDS-like graphs (62 vertex labels, 3 edge
+    labels, n in [10, 40]; seed 8), 16 of them queries with three
+    ``perturb(q, k)`` near-duplicates each, k in [1, 3], in two
+    ``GraphStore`` objects on the card (the reference bench's options,
+    ``cache=False``): every kernel family fused, and ``use_kernel=False``.
+    The ingest wall split into vocab, pack and dedup; the signature
+    build's wall and device time (equal to the store's signatures and to
+    ``wl_signature``); ``search_batch`` at tau 2 and 4 on both stores:
+    queries/s, the funnel per stage, the share of candidates that survives
+    stage -1 and the wall per stage; launch counts around the fused
+    store's passes (every kernel must launch); fused hits equal to
+    unfused hits field by field; every planted near-duplicate within tau
+    found, every hit certified, the funnel summing to the candidates;
+    ``verify_members`` on the planted ids agreeing with the range hits;
+    ``save`` and a warm ``GraphStore.open`` (nothing re-packed or
+    re-hashed, identical hits, ``open_wall_s`` beside ``ingest_wall_s``);
+    and a 2,000-graph sub-store (n in [8, 14], four queries with seven
+    near-duplicates each) whose ``range_search(tau=2)`` and ``top_k(4)``
+    hits on the card equal the same store's on the CPU;
+11. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
+    ``"auto"`` run plus the fused store's), the card's name and power
+    limit, and as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -209,13 +231,13 @@ def cuda_ms(fn, reps: int = 20, groups: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20):
+def device_ms(fn, reps: int = 20, warmup: int = 3):
     """Device time per call: the summed durations of every CUDA kernel
     ``fn`` launches, from ``torch.profiler`` over ``reps`` calls (host
     gaps between launches excluded).  None if the profiler saw no kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -1263,6 +1285,228 @@ def faults_phase(pairs, vocab, comp_c, ver_c, cuda_launches, auto_pairs,
     return summ
 
 
+# ---------------------------------------------------------------- store
+
+STORE_GRAPHS = 42687     # graphs in the AIDS antiviral screen database
+STORE_QUERIES = 16       # queries drawn from the corpus
+STORE_PLANTED = 3        # perturb(query, k), k in [1, 3], per query
+STORE_TAUS = (2.0, 4.0)
+# the reference bench's store options (benchmarks/eval_engine.py)
+STORE_OPTS = dict(backend="auto", batch_size=32, pool=512, expand=8,
+                  max_iters=512, cache=False)
+# the top-k sub-store: its eight sketch-nearest seeds per query are the
+# query and its seven near-duplicates, so top_k(4) computes no exact GED
+# between unrelated graphs
+SUB_GRAPHS, SUB_QUERIES, SUB_PLANTED = 2000, 4, 7
+FUNNEL = ("candidates", "index_pruned", "stage0_pruned", "stage1_decided",
+          "stage1_accepted", "stage2_verified", "hits")
+STAGE_WALLS = ("index_wall_s", "scan_wall_s", "bound_wall_s",
+               "verify_wall_s")
+
+
+def store_corpus(rng, count, n_lo, n_hi, queries, planted):
+    """``count`` AIDS-like graphs (62 vertex labels, 3 edge labels, n in
+    [n_lo, n_hi]), the last ``queries * planted`` of them ``perturb(q,
+    k)``, k in [1, 3], of ``queries`` graphs drawn from the rest.  Returns
+    (graphs, query ids, {planted id: (query position, k)})."""
+    from repro_torch.data.graphs import aids_like_graph, perturb
+    base = count - queries * planted
+    graphs = [aids_like_graph(rng, int(rng.integers(n_lo, n_hi + 1)),
+                              n_vlabels=62, n_elabels=3)
+              for _ in range(base)]
+    qids = [int(i) for i in rng.choice(base, queries, replace=False)]
+    planted_of = {}
+    for qi, q in enumerate(qids):
+        for _ in range(planted):
+            k = int(rng.integers(1, 4))
+            planted_of[len(graphs)] = (qi, k)
+            graphs.append(perturb(rng, graphs[q], k, n_vlabels=62,
+                                  n_elabels=3))
+    return graphs, qids, planted_of
+
+
+def expect_same_hits(tag, got, want):
+    """Hit lists equal field by field: id, stage, query id, outcome."""
+    for qi, (a, b) in enumerate(zip(got, want)):
+        ka = [(h.graph_id, h.stage, h.query_id) for h in a]
+        kb = [(h.graph_id, h.stage, h.query_id) for h in b]
+        assert ka == kb, f"{tag}: query {qi} hits {ka} != {kb}"
+        bad = [h.graph_id for h, i in zip(a, b)
+               if not same_outcome(h.outcome, i.outcome)]
+        assert not bad, f"{tag}: query {qi} outcomes differ at {bad}"
+    assert len(got) == len(want), tag
+
+
+def store_pass(store, queries, tau):
+    """``search_batch(queries, tau)`` on the card: (hits, row of the
+    funnel, the stage walls, queries/s and the share that survives stage
+    -1).  The funnel must sum to the candidates."""
+    import torch
+    before = store.stats
+    t0 = time.perf_counter()
+    hits = store.search_batch(queries, tau)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    after = store.stats
+    row = {k: after[k] - before[k] for k in FUNNEL + STAGE_WALLS}
+    assert row["index_pruned"] + row["stage0_pruned"] + \
+        row["stage1_decided"] + row["stage2_verified"] == \
+        row["candidates"], row
+    row.update(tau=tau, wall_s=wall, queries_per_s=len(queries) / wall,
+               examined_frac=(row["candidates"] - row["index_pruned"])
+               / row["candidates"])
+    return hits, row
+
+
+def store_phase(smi):
+    """The corpus layer on the card; returns (summary, the fused store's
+    launches over its two search passes)."""
+    import torch
+    from repro_torch import ged
+    from repro_torch.kernels import ops as kops
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    graphs, qids, planted_of = store_corpus(
+        np.random.default_rng(SEED + 8), STORE_GRAPHS, 10, 40,
+        STORE_QUERIES, STORE_PLANTED)
+    queries = [graphs[q] for q in qids]
+    summ = {"graphs": len(graphs), "queries": len(queries),
+            "mean_n": float(np.mean([g.n for g in graphs])),
+            "mean_m": float(np.mean([g.m for g in graphs])),
+            "corpus_s": time.perf_counter() - t0}
+    fused = ged.KernelDispatch(lsa_fused=True, bma_fused=True,
+                               merge_fused=True)
+    variants = {"fused": dict(use_kernel=True, dispatch=fused),
+                "unfused": dict(use_kernel=False)}
+    stores = {}
+    for tag, opts in variants.items():
+        t0 = time.perf_counter()
+        store = ged.GraphStore(graphs, device="cuda", **STORE_OPTS, **opts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s = store.stats
+        row = {"wall_s": wall, "ingest_wall_s": s["ingest_wall_s"],
+               "vocab_wall_s": s["vocab_wall_s"],
+               "pack_wall_s": s["pack_wall_s"],
+               "dedup_wall_s": s["ingest_wall_s"] - s["vocab_wall_s"]
+               - s["pack_wall_s"],
+               "dedup_groups": s["dedup_groups"],
+               "dedup_checks": s["dedup_checks"],
+               "slot_buckets": {b.slots: len(b.ids)
+                                for b in store._index.buckets}}
+        log(f"[store] ingest {tag}: " + json.dumps(row))
+        summ[f"ingest_{tag}"] = row
+        stores[tag] = store
+
+    store = stores["fused"]
+    cindex = store._cindex
+    reps = [graphs[i] for i in cindex.ids]
+    t0 = time.perf_counter()
+    sigs = ged.batch_signatures(reps, cindex.spec, store.executor)
+    sig_wall = time.perf_counter() - t0
+    assert np.array_equal(sigs, cindex.sigs)
+    sample = range(0, len(reps), 97)
+    assert all(np.array_equal(sigs[i], ged.wl_signature(reps[i],
+                                                        cindex.spec))
+               for i in sample)
+    sig_dev = device_ms(lambda: ged.batch_signatures(reps, cindex.spec,
+                                                     store.executor),
+                        reps=1, warmup=0)
+    summ["signatures"] = {"rows": len(reps), "wall_s": sig_wall,
+                          "device_ms": sig_dev}
+    log(f"[store] signature build: {len(reps)} rows x {cindex.spec.dims}, "
+        f"{sig_wall:.3f} s wall, device {sig_dev} ms; equal to the "
+        f"store's and, on {len(sample)} rows, to wl_signature on the host")
+
+    launches = dict.fromkeys(kops.launch_counts(), 0)
+    hits = {}
+    for tau in STORE_TAUS:
+        for tag in variants:
+            kops.reset_launch_counts()
+            hits[tag, tau], row = store_pass(stores[tag], queries, tau)
+            torch.cuda.synchronize()
+            if tag == "fused":      # reduced_top2 runs unfused too
+                for k, v in kops.launch_counts().items():
+                    launches[k] += v
+            log(f"[store] search {tag}: " + json.dumps(row))
+            summ[f"search_{tag}_tau{tau:g}"] = row
+        expect_same_hits(f"[store] fused vs unfused at tau {tau}",
+                         hits["fused", tau], hits["unfused", tau])
+        for qi, hs in enumerate(hits["fused", tau]):
+            found = {h.graph_id for h in hs}
+            assert qids[qi] in found, (tau, qi)
+            missed = [p for p, (q, k) in planted_of.items()
+                      if q == qi and k <= tau and p not in found]
+            assert not missed, f"tau {tau}: planted {missed} not found"
+            assert all(h.certified and h.similar for h in hs)
+    log(f"[store] fused store launches (both taus): {json.dumps(launches)}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    assert not missing, f"kernels never launched on the store path: {missing}"
+    for tag in variants:
+        no_fault_keys(f"store {tag}", stores[tag].engine.stats)
+    log("[store] fused == unfused on every hit; every planted "
+        "near-duplicate within tau found; every hit certified; the funnel "
+        "sums to the candidates")
+
+    tau = STORE_TAUS[0]
+    n_checked = 0
+    for qi, hs in enumerate(hits["fused", tau]):
+        ids = [p for p, (q, _) in planted_of.items() if q == qi]
+        found = {h.graph_id for h in hs}
+        for p, o in zip(ids, store.verify_members(queries[qi], ids, tau)):
+            assert o.certified and o.similar == (p in found), (qi, p, o)
+            n_checked += 1
+    log(f"[store] verify_members on {n_checked} planted ids agrees with "
+        f"the range hits at tau {tau:g}")
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        store.save(d)
+        save_wall = time.perf_counter() - t0
+        warm = ged.GraphStore.open(d, device="cuda", **STORE_OPTS,
+                                   **variants["fused"])
+        ws = warm.stats
+        assert ws["filter_packed_rows"] == 0, ws["filter_packed_rows"]
+        assert ws["index_signatures_built"] == 0
+        for tau in STORE_TAUS:
+            expect_same_hits(f"[store] warm open at tau {tau}",
+                             warm.search_batch(queries, tau),
+                             hits["fused", tau])
+    summ["persist"] = {"save_wall_s": save_wall,
+                       "open_wall_s": ws["open_wall_s"],
+                       "ingest_wall_s": store.stats["ingest_wall_s"]}
+    log("[store] save/open: " + json.dumps(summ["persist"]) +
+        "; the warm open re-packed and re-hashed nothing and answers "
+        "like the store it was saved from")
+
+    sub, sub_qids, _ = store_corpus(np.random.default_rng(SEED + 9),
+                                    SUB_GRAPHS, 8, 14, SUB_QUERIES,
+                                    SUB_PLANTED)
+    sub_queries = [sub[q] for q in sub_qids]
+    answers = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        st = ged.GraphStore(sub, device=device, **STORE_OPTS,
+                            **variants["fused"])
+        ranged = st.search_batch(sub_queries, STORE_TAUS[0])
+        top = [st.top_k(q, 4) for q in sub_queries]
+        answers[device] = (ranged, top, time.perf_counter() - t0)
+    expect_same_hits("[store] sub-store range, card vs CPU",
+                     answers["cuda"][0], answers["cpu"][0])
+    expect_same_hits("[store] sub-store top-k, card vs CPU",
+                     answers["cuda"][1], answers["cpu"][1])
+    for q, hs in zip(sub_qids, answers["cuda"][1]):
+        assert hs[0].graph_id == q and hs[0].ged == 0.0, (q, hs[0])
+    summ["sub_store"] = {"graphs": len(sub), "card_s": answers["cuda"][2],
+                         "cpu_s": answers["cpu"][2]}
+    log(f"[store] sub-store of {len(sub)} graphs: range_search(tau "
+        f"{STORE_TAUS[0]:g}) and top_k(4) on {len(sub_queries)} queries "
+        "equal on the card and the CPU")
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[store] summary: " + json.dumps(summ) + f" ({smi})")
+    return summ, launches
+
+
 # ----------------------------------------------------------------- main
 
 def main(argv) -> int:
@@ -1306,11 +1550,13 @@ def main(argv) -> int:
             + json.dumps({k: v for k, v in row.items()
                           if k not in ("bytes", "ops")}))
     errs = {k: v["max_abs_err"] for k, v in checks.items()}
-    # lsa_children and bma_cost_matrix timed at the other shapes the main
-    # and "auto" paths give them: N = 64 at the main path's 2048 states,
+    # lsa_children and bma_cost_matrix timed at the other shapes the main,
+    # "auto" and store paths give them: N = 64 and N = 16 (the slot bucket
+    # of the store's small graphs) at the main path's 2048 states,
     # the "auto" path's rung-0 buckets (128 pairs x 4 at slot 32, 32 pairs
     # x 4 at slot 64), and an edgeless batch (Le = 0)
     extra = [("N=64", aids_pairs(np.random.default_rng(SEED + 3), PAIRS, 40, 60)[0], 64, EXPAND),
+             ("N=16", aids_pairs(np.random.default_rng(SEED + 10), PAIRS, 9, 16)[0], 16, EXPAND),
              ("rung0 N=32", aids_pairs(np.random.default_rng(SEED + 6), 128, 20, 30)[0], 32, 4),
              ("rung0 N=64", aids_pairs(np.random.default_rng(SEED + 7), 32, 40, 60)[0], 64, 4),
              ("Le=0", edgeless_pairs(np.random.default_rng(SEED + 2), 64, 6, 30), 32, EXPAND)]
@@ -1402,10 +1648,16 @@ def main(argv) -> int:
             label_vocab(pairs + big), auto_comp, auto_ver, launches,
             auto_summ["compute_s_median_min_max"][0], tune_dir, smi)
 
+    # ---- the corpus layer: GraphStore at the AIDS database's size -------
+    store_summ, store_launches = store_phase(smi)
+
     log("[kernels] " + ", ".join(
-        f"{k}: launches={launches[k]} equal=True" for k in KERNELS))
+        f"{k}: launches={launches[k] + store_launches[k]} (auto "
+        f"{launches[k]}, store {store_launches[k]}) equal=True"
+        for k in KERNELS))
     log(json.dumps({"main_path": summ, "auto_path": auto_summ,
                     "cache_path": cache_summ, "faults_path": faults_summ,
+                    "store_path": store_summ,
                     "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))
@@ -1417,7 +1669,8 @@ def main(argv) -> int:
     log(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{k}.cu",
-        "replaces": KERNELS[k], "launches": launches[k],
+        "replaces": KERNELS[k],
+        "launches": launches[k] + store_launches[k],
         "max_abs_err": errs[k], "ms": device_or_call(checks[k], "kernel"),
         "plain_ms": device_or_call(checks[k], "plain"),
         "bound_ms": checks[k]["bound_us"] / 1e3,

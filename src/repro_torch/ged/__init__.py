@@ -13,6 +13,19 @@ pairs through one engine.  ``deadline_s`` (:class:`Deadline`) makes a call
 anytime, ``fault_inject`` (:class:`FaultInjector`) and ``retry``
 (:class:`RetryPolicy`) drive the degradation ladder.
 
+Corpus-scale similarity search goes through the same door:
+:class:`GraphStore` ingests a graph database once (shared label vocab,
+stage-0 feature arrays resident on the device, canonical-digest dedup, a
+sublinear :class:`CandidateIndex` over :func:`wl_signature` sketches
+(:class:`SketchSpec`, built on the device by :func:`batch_signatures`,
+admissible by :func:`sketch_damage`) plus pivot pruning) and answers
+``range_search`` / ``top_k`` / ``search_batch`` / ``verify_members``
+through a staged filter-verify pipeline whose stage-1 engine pass and
+stage-2 verification run the Hopper kernels, returning ranked
+:class:`SearchHit` results.  ``GraphStore.save`` / ``GraphStore.open``
+persist it in the reference's on-disk format, so a store directory is
+read by either package.
+
 >>> from repro_torch import ged
 >>> [o.ged for o in ged.compute([(([0], []), ([1], []))], device="cpu")]
 [1.0]
@@ -23,16 +36,27 @@ from repro_torch.ged.backends import (AutoBackend, ExactBackend,
                                       available_backends, make_backend,
                                       register_backend)
 from repro_torch.ged.exec import (Executor, PendingBatch, ResultCache,
-                                  engine_outcome, graph_digest, wl_digest)
+                                  SketchSpec, batch_signatures,
+                                  engine_outcome, graph_digest, wl_digest,
+                                  wl_signature)
 from repro_torch.ged.faults import (Deadline, FaultInjector, InjectedFault,
                                     Overloaded, RetryPolicy)
+from repro_torch.ged.index import CandidateIndex, sketch_damage
 from repro_torch.ged.plan import Plan, as_graph, build_plan, slot_bucket
-from repro_torch.ged.results import GedOutcome
+from repro_torch.ged.results import GedOutcome, SearchHit
+from repro_torch.ged.store import GraphStore
 from repro_torch.kernels.autotune import KernelDispatch
 
 __all__ = [
     "GedEngine",
     "GedOutcome",
+    "GraphStore",
+    "CandidateIndex",
+    "SearchHit",
+    "SketchSpec",
+    "sketch_damage",
+    "wl_signature",
+    "batch_signatures",
     "compute",
     "verify",
     "register_backend",

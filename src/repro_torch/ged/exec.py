@@ -14,6 +14,10 @@ Backends (:mod:`repro_torch.ged.backends`) are policies; everything about
   pair digests (:func:`graph_digest` / :func:`wl_digest`; label-vocab
   independent, tau-aware for verification) that
   :class:`repro_torch.ged.GedEngine` consults before any executor runs.
+* :func:`wl_signature` / :func:`batch_signatures` — the WL-sketch
+  signatures of the corpus layer's candidate index (:class:`SketchSpec`),
+  on the host for one query and on the executor's device for a corpus,
+  bit-identical to each other and to the reference's.
 * :func:`enable_compile_cache` — the kernel library's build directory,
   the port's counterpart of the reference's persistent compile cache.
 
@@ -38,7 +42,7 @@ import dataclasses
 import hashlib
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -252,6 +256,22 @@ class Executor:
                 bump("fault_dispatch")
                 raise
 
+    def run_packed(self, packed, taus: np.ndarray, cfg: EngineConfig,
+                   verification: bool, real: Optional[int] = None,
+                   ctx: Optional[faults.RunContext] = None,
+                   rung: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """One blocking engine invocation over a packed bucket; numpy dict
+        (:meth:`run_packed_async` + :meth:`PendingBatch.result`)."""
+        return self.run_packed_async(packed, taus, cfg, verification,
+                                     real=real, ctx=ctx, rung=rung).result()
+
+    def run_bucket(self, bucket: Bucket, taus: np.ndarray, cfg: EngineConfig,
+                   verification: bool) -> Dict[str, np.ndarray]:
+        """Run one plan bucket and wait for it; ``taus`` is the
+        plan-global per-pair array."""
+        return self.run_bucket_async(bucket, taus, cfg,
+                                     verification).result()
+
     def run_bucket_async(self, bucket: Bucket, taus: np.ndarray,
                          cfg: EngineConfig, verification: bool,
                          ctx: Optional[faults.RunContext] = None,
@@ -366,6 +386,168 @@ def wl_digest(g: Graph, iters: int = 3) -> bytes:
 
 
 DIGESTS = {"exact": graph_digest, "wl": wl_digest}
+
+
+# ------------------------------------------------------- sketch signatures
+
+# Multiplicative uint32 hash constants (Knuth / murmur-style finalisers),
+# the reference's.  The same wraparound arithmetic runs in numpy on the
+# host (one query graph) and in torch on the executor's device (the
+# packed corpus), so signatures agree bit for bit whichever path produced
+# them; CandidateIndex probes depend on that.
+_H_VMUL = 2654435761        # vertex-label hash multiplier
+_H_VADD = 0x9E3779B9
+_H_EMUL = 0xC2B2AE35        # edge label inside the neighbor combine
+_H_NMUL = 0x27D4EB2F        # per-neighbor contribution
+_H_CMUL = 0x85EBCA6B        # self color between WL rounds
+_H_CADD = 0x165667B1
+_H_BMUL = 0x9E3779B1        # edge-label histogram bin
+_H_BADD = 0x85EBCA77
+_U32 = 0xFFFFFFFF
+
+
+@dataclasses.dataclass(frozen=True)
+class SketchSpec:
+    """Shape of a WL-sketch signature (see :func:`wl_signature`).
+
+    ``dims_v`` / ``dims_e`` are the hashed vertex- and edge-histogram
+    widths; ``wl_iters`` rounds of Weisfeiler-Leman color refinement run
+    before the vertex part is binned (0 = plain label histogram, the
+    default — deeper sketches discriminate more but carry a larger
+    admissible damage factor, see :func:`repro_torch.ged.index.sketch_damage`).
+
+    >>> SketchSpec().dims        # 64 vertex + 16 edge bins + (n, m)
+    82
+    """
+
+    dims_v: int = 64
+    dims_e: int = 16
+    wl_iters: int = 0
+
+    @property
+    def dims(self) -> int:
+        return self.dims_v + self.dims_e + 2
+
+
+def wl_signature(g: Graph, spec: SketchSpec = SketchSpec()) -> np.ndarray:
+    """Integer sketch of one graph: hashed WL-color histogram (``dims_v``
+    bins) ⊕ hashed edge-label histogram (``dims_e`` bins) ⊕ ``(n, m)``.
+
+    One unit edit operation moves the sketch's L1 norm by a bounded amount
+    (the damage factor, 2 at ``wl_iters=0``), and hashing labels into bins
+    only merges histogram mass, so ``ceil(L1 / damage)`` is an admissible
+    GED lower bound at any width.  Host path of the pair whose batched
+    twin is :func:`batch_signatures`; byte-equal to the reference's.
+
+    >>> from repro_torch.ged.plan import as_graph
+    >>> s = wl_signature(as_graph(([0, 1], [(0, 1, 1)])))
+    >>> int(s.sum() - s[-2] - s[-1]), int(s[-2]), int(s[-1])   # 2 vertices, 1 edge
+    (3, 2, 1)
+    """
+    u32 = np.uint32
+    c = np.asarray(g.vlabels, dtype=np.int64).astype(u32) * u32(_H_VMUL) \
+        + u32(_H_VADD)
+    adj = np.ascontiguousarray(g.adj, dtype=np.int64).astype(u32)
+    present = g.adj > 0
+    for _ in range(spec.wl_iters):
+        h = (adj * u32(_H_EMUL) + c[None, :]) * u32(_H_NMUL)
+        nsum = np.where(present, h, u32(0)).sum(axis=1, dtype=u32)
+        c = c * u32(_H_CMUL) + nsum + u32(_H_CADD)
+    sig = np.zeros(spec.dims, dtype=np.int32)
+    sig[:spec.dims_v] = np.bincount(
+        (c % u32(spec.dims_v)).astype(np.int64), minlength=spec.dims_v)
+    iu, ju = np.nonzero(np.triu(g.adj, k=1))
+    elabs = np.asarray(g.adj, dtype=np.int64)[iu, ju].astype(u32)
+    ebin = ((elabs * u32(_H_BMUL) + u32(_H_BADD))
+            % u32(spec.dims_e)).astype(np.int64)
+    sig[spec.dims_v:spec.dims_v + spec.dims_e] = np.bincount(
+        ebin, minlength=spec.dims_e)
+    sig[-2] = g.n
+    sig[-1] = g.m
+    return sig
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """``x * c mod 2**32`` for int64 ``x`` in ``[0, 2**32)`` and a 32-bit
+    constant: ``c`` is split into 16-bit halves so no product reaches
+    2**49 (torch has no uint32 multiply on the card)."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _U32
+
+
+def _signatures(vlab: torch.Tensor, mask: torch.Tensor, adj: torch.Tensor,
+                spec: SketchSpec) -> torch.Tensor:
+    """:func:`wl_signature` of a padded batch: ``vlab`` / ``mask``
+    ``(batch, slots)`` and ``adj`` ``(batch, slots, slots)`` int64; the
+    reference's uint32 ops in the same order, in int64 masked to 32 bits.
+    Returns ``(batch, dims)`` int64."""
+    batch, slots = vlab.shape
+    c = (_mul32(vlab & _U32, _H_VMUL) + _H_VADD) & _U32
+    present = adj > 0
+    adj32 = adj & _U32
+    for _ in range(spec.wl_iters):
+        h = _mul32((_mul32(adj32, _H_EMUL) + c[:, None, :]) & _U32, _H_NMUL)
+        nsum = torch.where(present, h, 0).sum(dim=2) & _U32
+        c = (_mul32(c, _H_CMUL) + nsum + _H_CADD) & _U32
+    sig = torch.zeros((batch, spec.dims), dtype=torch.int64,
+                      device=vlab.device)
+    sig[:, :spec.dims_v].scatter_add_(1, c % spec.dims_v, mask)
+    tri = torch.triu(torch.ones((slots, slots), dtype=torch.int64,
+                                device=vlab.device), diagonal=1)
+    w = present.to(torch.int64) * tri
+    ebin = ((_mul32(adj32, _H_BMUL) + _H_BADD) & _U32) % spec.dims_e
+    sig[:, spec.dims_v:spec.dims_v + spec.dims_e].scatter_add_(
+        1, ebin.reshape(batch, -1), w.reshape(batch, -1))
+    sig[:, -2] = mask.sum(dim=1)
+    sig[:, -1] = w.sum(dim=(1, 2))
+    return sig
+
+
+def batch_signatures(graphs: Sequence[Graph],
+                     spec: SketchSpec = SketchSpec(),
+                     executor: Optional[Executor] = None,
+                     chunk: int = 2048) -> np.ndarray:
+    """:func:`wl_signature` for a whole corpus, batched on the executor's
+    device.
+
+    Graphs are grouped into power-of-two slot buckets (the planner's
+    shapes), packed into ``(batch, slots)`` label/mask and
+    ``(batch, slots, slots)`` adjacency tensors in chunks of ``chunk``
+    rows, and hashed with batched torch ops (``scatter_add_`` bins the
+    histograms).  Returns ``(len(graphs), spec.dims)`` int32 on the host,
+    row order = input order, bit-identical to the host path and to the
+    reference's ``batch_signatures``:
+
+    >>> from repro_torch.ged.plan import as_graph
+    >>> g = as_graph(([0, 1, 0], [(0, 1, 1), (1, 2, 2)]))
+    >>> ex = Executor(device="cpu")
+    >>> bool((batch_signatures([g], executor=ex)[0] == wl_signature(g)).all())
+    True
+    """
+    from repro_torch.ged.plan import slot_bucket
+    sigs = np.zeros((len(graphs), spec.dims), dtype=np.int32)
+    if not len(graphs):
+        return sigs
+    device = (executor or Executor()).device
+    by_slots: Dict[int, list] = {}
+    for i, g in enumerate(graphs):
+        by_slots.setdefault(slot_bucket(g.n), []).append(i)
+    for slots in sorted(by_slots):
+        idxs = by_slots[slots]
+        for lo in range(0, len(idxs), chunk):
+            part = idxs[lo:lo + chunk]
+            vlab = np.zeros((len(part), slots), dtype=np.int64)
+            mask = np.zeros((len(part), slots), dtype=np.int64)
+            adj = np.zeros((len(part), slots, slots), dtype=np.int64)
+            for r, gi in enumerate(part):
+                g = graphs[gi]
+                vlab[r, :g.n] = g.vlabels
+                mask[r, :g.n] = 1
+                adj[r, :g.n, :g.n] = g.adj
+            out = _signatures(*(torch.from_numpy(a).to(device)
+                                for a in (vlab, mask, adj)), spec)
+            sigs[np.asarray(part, dtype=np.int64)] = out.cpu().numpy()
+    return sigs
 
 
 def pair_key_from_digests(dq: bytes, dg: bytes, verification: bool,

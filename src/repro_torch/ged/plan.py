@@ -3,7 +3,9 @@
 Two jobs, both shape-related (the counterpart of ``repro/ged/plan.py``):
 
 1. **Ingestion** — :func:`as_graph` accepts the formats users actually have
-   (``Graph`` objects, ``(vlabels, edges)`` tuples, adjacency dicts).
+   (``Graph`` objects, ``(vlabels, edges)`` tuples, adjacency dicts), and
+   :func:`graphs_vocab` / :func:`merge_vocab` give a corpus its shared
+   label vocabulary.
 2. **Bucketing** — :func:`build_plan` groups pairs by power-of-two slot
    count and pads each bucket's batch dimension to a power of two, with
    one label vocabulary shared by every bucket.
@@ -80,6 +82,38 @@ def as_pairs(pairs) -> List[Tuple[Graph, Graph]]:
         q, g = p
         out.append((as_graph(q), as_graph(g)))
     return out
+
+
+def graphs_vocab(graphs: Sequence[Graph]) -> Vocab:
+    """Shared ``(vertex_labels, edge_labels)`` vocabulary for a corpus.
+
+    The single-graph analogue of
+    :func:`repro_torch.core.engine.tensor_graphs.label_vocab` — a
+    :class:`repro_torch.ged.GraphStore` computes it once at ingest so
+    every query bucket (and the stage-0 feature histograms) share one
+    compact label space.
+
+    >>> g = as_graph(([0, 5], [(0, 1, 2)]))
+    >>> graphs_vocab([g])
+    ((0, 5), (2,))
+    """
+    return label_vocab([(g, g) for g in graphs])
+
+
+def merge_vocab(vocab: Vocab, graphs: Sequence[Graph]) -> Vocab:
+    """``vocab`` extended with any labels ``graphs`` introduce.
+
+    Queries against an ingested corpus may carry labels the corpus never
+    uses; packing with the merged vocabulary keeps every bucket's coverage
+    check satisfied while staying stable for the common all-known-labels
+    case.
+
+    >>> merge_vocab(((0,), (1,)), [as_graph(([0, 7], [(0, 1, 3)]))])
+    ((0, 7), (1, 3))
+    """
+    extra_v, extra_e = graphs_vocab(graphs)
+    return (tuple(sorted(set(vocab[0]) | set(extra_v))),
+            tuple(sorted(set(vocab[1]) | set(extra_e))))
 
 
 # -------------------------------------------------------------- bucketing

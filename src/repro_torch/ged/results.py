@@ -1,7 +1,10 @@
-"""The result schema every ``repro_torch.ged`` entry point returns.
+"""The result schemas every ``repro_torch.ged`` entry point returns.
 
-The same :class:`GedOutcome` as ``repro/ged/results.py``: whatever the
-backend, a query for one pair comes back as one outcome.
+The same :class:`GedOutcome` and :class:`SearchHit` as
+``repro/ged/results.py``: whatever the backend, a query for one pair
+comes back as one outcome, and a corpus query
+(:class:`repro_torch.ged.GraphStore`) wraps each answered candidate in a
+hit carrying its corpus id and the pipeline stage that decided it.
 """
 
 from __future__ import annotations
@@ -75,6 +78,66 @@ class GedOutcome:
         the preferred execution path failed.
         """
         return bool(self.stats.get("degraded", False))
+
+
+# Pipeline stages a :class:`SearchHit` / store statistic can refer to (the
+# reference's values).
+STAGE_INDEX = -1     # sublinear candidate index (banded WL-sketch LSH +
+                     # pivot triangle bounds); like stage 0, it only rejects
+STAGE_FILTER = 0     # vectorized corpus scan (label/degree/size bounds)
+STAGE_BOUND = 1      # batched anchor-aware engine bounds, tiny budget
+STAGE_VERIFY = 2     # full certified verification / computation
+
+
+@dataclasses.dataclass
+class SearchHit:
+    """One corpus graph answered by a :class:`repro_torch.ged.GraphStore`
+    query.
+
+    * ``graph_id`` — index into the store's ingested corpus (duplicate
+      corpus entries each get their own hit, sharing one computed
+      outcome).
+    * ``outcome`` — the full :class:`GedOutcome` that decided this
+      candidate (certified for range search and top-k).
+    * ``stage`` — which pipeline stage decided it: ``STAGE_BOUND`` (1)
+      when the cheap anchor-aware engine pass already certified the
+      answer, ``STAGE_VERIFY`` (2) when full verification ran.  Pruned
+      candidates never become hits, so hits report stage 1 or 2.
+    * ``query_id`` — position of the query in a ``search_batch`` call
+      (``None`` for single-query entry points).
+
+    >>> o = GedOutcome(ged=1.0, similar=None, certified=True,
+    ...                lower_bound=1.0, upper_bound=1.0, mapping=None,
+    ...                backend="auto", wall_s=0.0)
+    >>> h = SearchHit(graph_id=7, outcome=o, stage=STAGE_VERIFY)
+    >>> h.graph_id, h.ged, h.certified, h.stage
+    (7, 1.0, True, 2)
+    """
+
+    graph_id: int
+    outcome: GedOutcome
+    stage: int
+    query_id: Optional[int] = None
+
+    @property
+    def ged(self) -> Optional[float]:
+        return self.outcome.ged
+
+    @property
+    def similar(self) -> Optional[bool]:
+        return self.outcome.similar
+
+    @property
+    def certified(self) -> bool:
+        return self.outcome.certified
+
+    @property
+    def lower_bound(self) -> float:
+        return self.outcome.lower_bound
+
+    @property
+    def upper_bound(self) -> float:
+        return self.outcome.upper_bound
 
 
 def engine_mapping(order_row: np.ndarray, img_row: np.ndarray,

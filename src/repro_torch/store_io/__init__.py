@@ -3,6 +3,9 @@
 
 * :mod:`repro_torch.store_io.atomic` — atomic-rename JSON, checksummed
   manifests and ``.npy`` segments, advisory file locks;
+* :mod:`repro_torch.store_io.graphstore_io` — the on-disk layout behind
+  :meth:`repro_torch.ged.GraphStore.save` / ``open``: generation
+  directories, the append/delete journal and compaction;
 * :mod:`repro_torch.store_io.shared_cache` — :class:`SharedResultCache`,
   the file-locked cross-process LRU of certified GED scalars behind the
   engine's in-memory result cache (``GedEngine(shared_cache_dir=...)``).

@@ -68,8 +68,8 @@ def _states(pairs, slots, expand, rng, device):
 
 
 @pytest.mark.parametrize("slots,n_lo,n_hi,edges", [
-    (8, 3, 8, True), (24, 10, 24, True), (32, 20, 30, True),
-    (64, 40, 60, True), (16, 4, 16, False)])
+    (8, 3, 8, True), (16, 8, 15, True), (24, 10, 24, True),
+    (32, 20, 30, True), (64, 40, 60, True), (16, 4, 16, False)])
 def test_kernels_equal_their_twins(card, slots, n_lo, n_hi, edges):
     """Engine-state operands, a slot count that is not a power of two,
     and an edgeless batch (Le = 0)."""
@@ -561,3 +561,48 @@ def test_expired_deadline_launches_nothing(card, backend):
     assert set(kops.launch_counts().values()) == {0}
     assert all(o.timed_out and not o.certified for o in outs)
     assert eng.stats["timed_out_pairs"] == 2 * len(pairs)
+
+
+def _store_corpus(seed, count, queries):
+    """AIDS-like graphs (62 vertex labels) with n in [8, 15) and seven
+    planted near-duplicates of each of the first ``queries`` graphs, so
+    ``top_k(4)``'s eight sketch-nearest seeds are all near graphs."""
+    rng = np.random.default_rng(seed)
+    graphs = [aids_like_graph(rng, int(rng.integers(8, 15)), n_vlabels=62,
+                              n_elabels=3) for _ in range(count)]
+    for qi in range(queries):
+        for _ in range(7):
+            graphs.append(perturb(rng, graphs[qi], int(rng.integers(1, 4)),
+                                  n_vlabels=62, n_elabels=3))
+    return graphs
+
+
+def test_store_on_the_card_launches_every_kernel_and_equals_cpu(card):
+    """A corpus store with every kernel family fused: stage 1 and stage 2
+    launch all four kernels on the card, and the hits, the signatures and
+    the stage-0 bounds equal the same store's on the CPU."""
+    corpus = _store_corpus(40, 120, 4)
+    fused = ged.KernelDispatch(lsa_fused=True, bma_fused=True,
+                               merge_fused=True)
+    opts = dict(use_kernel=True, dispatch=fused, cache=False, pool=256,
+                expand=4, max_iters=256, batch_size=8)
+    on_card = ged.GraphStore(corpus, device=card, **opts)
+    on_cpu = ged.GraphStore(corpus, device="cpu", **opts)
+    assert np.array_equal(on_card._cindex.sigs, on_cpu._cindex.sigs)
+    queries = corpus[:4]
+
+    def rows(hits):
+        return [(h.graph_id, h.stage, h.ged, h.similar, h.certified,
+                 h.lower_bound, h.upper_bound) for h in hits]
+
+    kops.reset_launch_counts()
+    got = [rows(h) for h in on_card.search_batch(queries, 3.0)]
+    torch.cuda.synchronize()
+    launches = kops.launch_counts()
+    assert all(v > 0 for v in launches.values()), launches
+    assert got == [rows(h) for h in on_cpu.search_batch(queries, 3.0)]
+    assert all(len(h) >= 4 for h in got)           # query + planted
+    assert on_card.stats["stage1_decided"] > 0
+    for q in queries[:2]:
+        assert rows(on_card.top_k(q, 4)) == rows(on_cpu.top_k(q, 4))
+        assert np.array_equal(on_card._index.scan(q), on_cpu._index.scan(q))
