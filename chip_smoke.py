@@ -105,9 +105,36 @@ nothing falls back to the CPU):
     and a 2,000-graph sub-store (n in [8, 14], four queries with seven
     near-duplicates each) whose ``range_search(tau=2)`` and ``top_k(4)``
     hits on the card equal the same store's on the CPU;
-11. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
-    ``"auto"`` run plus the fused store's), the card's name and power
-    limit, and as the last line ``{"ok": true, "device": {...}}``.
+11. ``[serving]``, the GED services: ``GedVerificationService(
+    use_kernel=True)`` on the main cell's 256 pairs as requests at tau 4
+    (every answer certified, equal field by field to a direct
+    ``GedEngine("auto")`` with the service's options and in verdict to
+    ``[main]``'s ``"cuda"`` run; requests/s; ``reduced_top2``,
+    ``bma_cost_matrix`` and ``lsa_children`` must launch); the same
+    requests again (all result-cache hits, no launch, no dispatch);
+    ``deadline_s=3600`` requests (answers unchanged); ``register_corpus``
+    with the 2,000-graph sub-store (in-corpus targets counted by
+    ``store_candidates``, verdicts equal the direct engine's); a held
+    admission budget (``Overloaded``, ``health()``'s ``shed``);
+    ``GedSimilarityService`` on the sub-store (``range_search``,
+    ``top_k`` and ``search`` equal the sub-store's hits); and
+    ``python -m repro_torch.launch.serve --mode ged`` in a child process
+    (``certified: 100/100``);
+12. ``[sharded]``, multi-device placement: ``GedEngine("sharded")`` on
+    every visible card (one card: ``batch_multiple`` 1 and the fast
+    path; outcomes equal ``[main]``'s ``"torch"``), ``"auto"`` on
+    ``mesh=["cuda:0", "cuda:0"]`` all fused on the 320-pair mix (two
+    shards a batch; all four kernels launch; outcomes equal ``[auto]``'s
+    all-fused run; timed in turns with the one-device run: mesh, one
+    device, one device, mesh; on a machine with several cards also one
+    shard per card, timed beside it), and ``GraphStore(mesh=["cuda:0",
+    "cuda:0"])`` on the sub-store (buckets and batches multiples of 2,
+    signatures byte-equal, hits equal the single-device store's), each
+    wall beside the single-device one;
+13. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
+    ``"auto"`` run, the fused store's, the services' and the mesh
+    ``"auto"`` run's), the card's name and power limit, and as the last
+    line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -681,6 +708,7 @@ def auto_phase(pairs, ks, tune_dir):
                 if not same_outcome(a, b)]
         assert not diff, f"auto outcomes differ from {name} at {diff[:10]}"
     log("[auto] tuned == all-fused == unfused on every outcome field")
+    summ["all_fused_s"] = [tcf, tvf]
 
     assert all(o.certified for o in comp + ver), "uncertified auto answer"
     for o, k in zip(comp, ks):
@@ -1360,7 +1388,9 @@ def store_pass(store, queries, tau):
 
 def store_phase(smi):
     """The corpus layer on the card; returns (summary, the fused store's
-    launches over its two search passes)."""
+    launches over its two search passes, the card's 2,000-graph sub-store:
+    graphs, query ids and queries, its range and top-k hits, signatures
+    and wall seconds)."""
     import torch
     from repro_torch import ged
     from repro_torch.kernels import ops as kops
@@ -1483,7 +1513,7 @@ def store_phase(smi):
                                     SUB_GRAPHS, 8, 14, SUB_QUERIES,
                                     SUB_PLANTED)
     sub_queries = [sub[q] for q in sub_qids]
-    answers = {}
+    answers, sub_sigs = {}, None
     for device in ("cuda", "cpu"):
         t0 = time.perf_counter()
         st = ged.GraphStore(sub, device=device, **STORE_OPTS,
@@ -1491,6 +1521,8 @@ def store_phase(smi):
         ranged = st.search_batch(sub_queries, STORE_TAUS[0])
         top = [st.top_k(q, 4) for q in sub_queries]
         answers[device] = (ranged, top, time.perf_counter() - t0)
+        if device == "cuda":
+            sub_sigs = st._cindex.sigs
     expect_same_hits("[store] sub-store range, card vs CPU",
                      answers["cuda"][0], answers["cpu"][0])
     expect_same_hits("[store] sub-store top-k, card vs CPU",
@@ -1504,6 +1536,265 @@ def store_phase(smi):
         "equal on the card and the CPU")
     summ["phase_s"] = time.perf_counter() - t_phase
     log("[store] summary: " + json.dumps(summ) + f" ({smi})")
+    sub_store = {"graphs": sub, "qids": sub_qids, "queries": sub_queries,
+                 "ranged": answers["cuda"][0], "top": answers["cuda"][1],
+                 "sigs": sub_sigs, "wall_s": answers["cuda"][2]}
+    return summ, launches, sub_store
+
+
+# -------------------------------------------------------------- serving
+
+LAUNCHER_PAIRS = 100     # the launcher's default request count
+
+
+def serving_phase(pairs, ver_c, sub_store, smi):
+    """The GED services on the card: the main cell's pairs as requests,
+    the result cache, corpus routing through the sub-store, deadlines,
+    shedding, the similarity service and the launcher; returns (summary,
+    launches of the service calls)."""
+    import torch
+    from repro_torch import ged
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving import (GedRequest, GedSimilarityService,
+                                     GedVerificationService, SearchRequest)
+    t_phase = time.perf_counter()
+    summ = {}
+    reqs = [GedRequest(q, g, tau=TAU) for q, g in pairs]
+    svc = GedVerificationService(use_kernel=True, device="cuda")
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = svc.verify(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kops.launch_counts()
+    missing = [k for k in ("reduced_top2", "bma_cost_matrix",
+                           "lsa_children") if launches[k] <= 0]
+    assert not missing, f"[serving] kernels never launched: {missing}"
+    assert all(o.certified for o in outs), "[serving] uncertified answer"
+    # the same engine, called directly: every field equal
+    direct = ged.GedEngine("auto", device="cuda", slots=32, batch_size=256,
+                           use_kernel=True, cache=False).verify(
+        pairs, tau=TAU)
+    expect_same("[serving] service vs the direct engine", outs, direct)
+    # the main cell's "cuda" engine (another search budget): the verdicts
+    diff = [i for i, (a, b) in enumerate(zip(outs, ver_c))
+            if b.certified and a.similar != b.similar]
+    assert not diff, f"[serving] verdicts differ from [main] at {diff[:10]}"
+    summ["verify"] = {"requests": len(reqs), "wall_s": wall,
+                      "requests_per_s": len(reqs) / wall,
+                      "launches": launches}
+    log("[serving] verify: " + json.dumps(summ["verify"]) + "; every "
+        "answer certified, equal field by field to GedEngine(\"auto\") "
+        "with the service's options and in verdict to [main]'s \"cuda\"")
+
+    calls = svc.engine.stats["executor_calls"]
+    kops.reset_launch_counts()
+    again, t_hit = timed(lambda: svc.verify(reqs))
+    assert set(kops.launch_counts().values()) == {0}, "[serving] hit launched"
+    assert svc.engine.stats["executor_calls"] == calls
+    expect_same("[serving] repeat", [uncached(o) for o in again], outs)
+    summ["repeat"] = {"wall_s": t_hit, "requests_per_s": len(reqs) / t_hit}
+    log(f"[serving] repeat: {len(reqs)} result-cache hits in {t_hit:.4f} s, "
+        "no launch, no dispatch")
+
+    dl = [GedRequest(q, g, tau=TAU, deadline_s=3600.0) for q, g in pairs]
+    fresh = GedVerificationService(use_kernel=True, device="cuda")
+    expect_same("[serving] deadline_s=3600", fresh.verify(dl), outs)
+    assert fresh.health()["timed_out_pairs"] == 0
+    log("[serving] requests with deadline_s=3600 answer like those without")
+
+    graphs, queries = sub_store["graphs"], sub_store["queries"]
+    store = svc.register_corpus(graphs)
+    rng = np.random.default_rng(SEED + 11)
+    members = [int(i) for i in rng.choice(len(graphs), 24, replace=False)]
+    routed = [GedRequest(queries[i % len(queries)], graphs[m], tau=2.0)
+              for i, m in enumerate(members)]
+    routed += [GedRequest(q, graphs[sub_store["qids"][i]], tau=2.0)
+               for i, q in enumerate(queries)]
+    routed += reqs[:8]                                 # not in the corpus
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = svc.verify(routed)
+    torch.cuda.synchronize()
+    t_routed = time.perf_counter() - t0
+    routed_launches = kops.launch_counts()
+    s = svc.stats
+    n_store = len(routed) - 8
+    assert s["store_candidates"] == n_store, s["store_candidates"]
+    assert s["store_index_pruned"] + s["store_stage0_pruned"] + \
+        s["store_stage1_decided"] + s["store_stage2_verified"] == n_store
+    want = ged.GedEngine("auto", device="cuda", cache=False).verify(
+        [(r.q, r.g) for r in routed], [r.tau for r in routed])
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if (a.similar, a.certified) != (b.similar, b.certified)]
+    assert not bad, f"[serving] routed verdicts differ at {bad}"
+    assert all(o.certified for o in got)
+    summ["routed"] = {"requests": len(routed), "in_store": n_store,
+                      "wall_s": t_routed, "launches": routed_launches,
+                      "funnel": {k: s[f"store_{k}"] for k in FUNNEL}}
+    log("[serving] routed through the store: " + json.dumps(summ["routed"])
+        + "; verdicts equal the direct engine's")
+
+    held = GedVerificationService(capacity=4, device="cuda", use_kernel=True)
+    with held.admission.admit(3):
+        try:
+            held.verify(reqs[:2])
+        except ged.Overloaded as err:
+            retry = err.retry_after_s
+        else:
+            raise AssertionError("[serving] a held budget did not shed")
+    h = held.health()
+    assert h["shed"] == 1 and h["queue_depth"] == 0, h
+    log(f"[serving] a held budget sheds with Overloaded (retry after "
+        f"{retry:.4f} s); health shed={h['shed']:g}")
+
+    sim = GedSimilarityService(graphs, device="cuda", **STORE_OPTS,
+                               use_kernel=True, dispatch=ged.KernelDispatch(
+                                   lsa_fused=True, bma_fused=True,
+                                   merge_fused=True))
+    ranged = [sim.range_search(q, STORE_TAUS[0]) for q in queries]
+    want_ranged = [[dataclasses.replace(h_, query_id=None) for h_ in hs]
+                   for hs in sub_store["ranged"]]
+    expect_same_hits("[serving] similarity range_search", ranged,
+                     want_ranged)
+    expect_same_hits("[serving] similarity top_k",
+                     [sim.top_k(q, 4) for q in queries], sub_store["top"])
+    answers = sim.search([SearchRequest(q, tau=STORE_TAUS[0])
+                          for q in queries])
+    expect_same_hits("[serving] similarity search", answers,
+                     sub_store["ranged"])
+    hs = sim.health()
+    summ["similarity"] = {"queries": 3 * len(queries),
+                          "p50_wall_s": hs["p50_wall_s"],
+                          "p99_wall_s": hs["p99_wall_s"]}
+    log("[serving] similarity service: range_search, top_k and search "
+        "equal the sub-store's own hits; " + json.dumps(summ["similarity"]))
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve",
+                          "--mode", "ged"], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=600)
+    t_launch = time.perf_counter() - t0
+    assert res.returncode == 0, res.stdout + res.stderr
+    want_line = f"certified: {LAUNCHER_PAIRS}/{LAUNCHER_PAIRS}"
+    assert want_line in res.stdout, res.stdout
+    log(f"[serving] launcher: {res.stdout.splitlines()[0]}; "
+        f"{res.stdout.splitlines()[1]} ({t_launch:.1f} s with start-up)")
+    summ["launcher_s"] = t_launch
+
+    health = svc.health()
+    summ["health"] = {k: health[k] for k in ("admitted", "shed",
+                                             "p50_wall_s", "p99_wall_s")}
+    for tag, eng in (("service", svc.engine), ("direct", fresh.engine)):
+        no_fault_keys(f"serving {tag}", eng.stats)
+    total = {k: summ["verify"]["launches"][k] + summ["routed"]["launches"][k]
+             for k in launches}
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[serving] summary: " + json.dumps(summ) + f" ({smi})")
+    return summ, total
+
+
+# -------------------------------------------------------------- sharded
+
+def sharded_phase(pairs, vocab, comp_t, ver_t, auto_pairs, auto_vocab,
+                  auto_comp, auto_ver, auto_s, sub_store, smi):
+    """Multi-device placement on the card: ``"sharded"`` on every visible
+    card, ``"auto"`` on a two-shard mesh of card 0 all fused, and a
+    two-shard ``GraphStore``; returns (summary, launches of the mesh
+    ``"auto"`` run)."""
+    import torch
+    from repro_torch import ged
+    from repro_torch.kernels import ops as kops
+    t_phase = time.perf_counter()
+    summ = {}
+    cards = torch.cuda.device_count()
+    out = []
+    comp, ver, tc, tv = run_engine("sharded", pairs, "cuda", vocab,
+                                   engine_out=out)
+    eng = out[0]
+    assert eng.batch_multiple == cards, eng.batch_multiple
+    fast = eng.stats["executor_single_device_fastpath"]
+    assert (fast > 0) == (cards == 1), fast
+    expect_same("[sharded] \"sharded\" vs [main] \"torch\"", comp + ver,
+                comp_t + ver_t)
+    summ["sharded_backend"] = {"cards": cards, "fastpath_dispatches": fast,
+                               "compute_s": tc, "verify_s": tv}
+    log("[sharded] \"sharded\" backend: " + json.dumps(
+        summ["sharded_backend"]) + "; outcomes equal [main]'s \"torch\"")
+
+    mesh = ["cuda:0", "cuda:0"]
+    fused = ged.KernelDispatch(lsa_fused=True, bma_fused=True,
+                               merge_fused=True)
+    kops.reset_launch_counts()
+    comp_m, ver_m, stats, tcm, tvm, _ = auto_run(
+        auto_pairs, auto_vocab, "cuda", mesh=mesh, dispatch=fused)
+    launches = kops.launch_counts()
+    missing = [k for k, v in launches.items() if v <= 0]
+    assert not missing, f"[sharded] kernels never launched: {missing}"
+    assert stats["executor_single_device_fastpath"] == 0
+    expect_same("[sharded] auto on a 2-shard mesh vs [auto] all fused",
+                comp_m + ver_m, auto_comp + auto_ver)
+    meshes = {"mesh": mesh}
+    walls = {"mesh": [(tcm, tvm)], "one_device": []}
+    if cards > 1:
+        # one shard on each card: the split the executor exists for
+        meshes["every_card"] = [f"cuda:{i}" for i in range(cards)]
+        comp_e, ver_e, _, tce, tve, _ = auto_run(
+            auto_pairs, auto_vocab, "cuda", mesh=meshes["every_card"],
+            dispatch=fused)
+        expect_same("[sharded] auto on every card vs [auto] all fused",
+                    comp_e + ver_e, auto_comp + auto_ver)
+        walls["every_card"] = [(tce, tve)]
+    # walls in turns (the meshes, one device twice, the meshes again):
+    # the host sets the pace and drifts between runs
+    for tag in ("one_device", "one_device", *meshes):
+        walls[tag].append(auto_run(auto_pairs, auto_vocab, "cuda",
+                                   dispatch=fused,
+                                   mesh=meshes.get(tag))[3:5])
+    summ["auto_mesh"] = {"meshes": meshes,
+                         "compute_verify_s": walls,
+                         "auto_phase_all_fused_s": auto_s,
+                         "dispatches": stats["dispatches"],
+                         "launches": launches}
+    log("[sharded] auto, meshes " + json.dumps(summ["auto_mesh"]) +
+        "; outcomes equal [auto]'s all-fused run field by field")
+
+    graphs, queries = sub_store["graphs"], sub_store["queries"]
+    t0 = time.perf_counter()
+    st = ged.GraphStore(graphs, mesh=mesh, **STORE_OPTS, use_kernel=True,
+                        dispatch=fused)
+    assert st.executor.batch_multiple == 2
+    assert all(len(b.shards) == 2 and
+               {sh[0].shape[0] for sh in b.shards} == {-(-len(b.ids) // 2)}
+               for b in st._index.buckets)
+    assert st._cindex.sigs.tobytes() == sub_store["sigs"].tobytes()
+    batches = []
+    dispatch = st.executor._dispatch
+
+    def spy(packed, taus, cfg, verification):
+        batches.append(packed.batch)
+        return dispatch(packed, taus, cfg, verification)
+
+    st.executor._dispatch = spy
+    ranged = st.search_batch(queries, STORE_TAUS[0])
+    top = [st.top_k(q, 4) for q in queries]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    del st.executor._dispatch
+    assert batches and all(b % 2 == 0 for b in batches), batches
+    expect_same_hits("[sharded] mesh store range", ranged,
+                     sub_store["ranged"])
+    expect_same_hits("[sharded] mesh store top-k", top, sub_store["top"])
+    no_fault_keys("sharded store", st.engine.stats)
+    summ["store_mesh"] = {"graphs": len(graphs), "wall_s": wall,
+                          "single_device_wall_s": sub_store["wall_s"],
+                          "dispatches": len(batches)}
+    log("[sharded] store, mesh " + json.dumps(summ["store_mesh"]) +
+        "; buckets and batches are multiples of 2, signatures byte-equal, "
+        "hits equal the single-device store's")
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[sharded] summary: " + json.dumps(summ) + f" ({smi})")
     return summ, launches
 
 
@@ -1649,15 +1940,29 @@ def main(argv) -> int:
             auto_summ["compute_s_median_min_max"][0], tune_dir, smi)
 
     # ---- the corpus layer: GraphStore at the AIDS database's size -------
-    store_summ, store_launches = store_phase(smi)
+    store_summ, store_launches, sub_store = store_phase(smi)
 
+    # ---- the GED services and their launcher ---------------------------
+    serving_summ, serving_launches = serving_phase(pairs, ver_c, sub_store,
+                                                   smi)
+
+    # ---- multi-device placement -----------------------------------------
+    sharded_summ, sharded_launches = sharded_phase(
+        pairs, vocab, comp_t, ver_t, pairs + big, label_vocab(pairs + big),
+        auto_comp, auto_ver, auto_summ["all_fused_s"], sub_store, smi)
+
+    phase_launches = {"auto": launches, "store": store_launches,
+                      "serving": serving_launches,
+                      "sharded": sharded_launches}
+    total = {k: sum(p[k] for p in phase_launches.values()) for k in KERNELS}
     log("[kernels] " + ", ".join(
-        f"{k}: launches={launches[k] + store_launches[k]} (auto "
-        f"{launches[k]}, store {store_launches[k]}) equal=True"
-        for k in KERNELS))
+        f"{k}: launches={total[k]} (" + ", ".join(
+            f"{tag} {p[k]}" for tag, p in phase_launches.items())
+        + ") equal=True" for k in KERNELS))
     log(json.dumps({"main_path": summ, "auto_path": auto_summ,
                     "cache_path": cache_summ, "faults_path": faults_summ,
-                    "store_path": store_summ,
+                    "store_path": store_summ, "serving_path": serving_summ,
+                    "sharded_path": sharded_summ,
                     "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))
@@ -1670,7 +1975,7 @@ def main(argv) -> int:
         "name": k, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{k}.cu",
         "replaces": KERNELS[k],
-        "launches": launches[k] + store_launches[k],
+        "launches": total[k],
         "max_abs_err": errs[k], "ms": device_or_call(checks[k], "kernel"),
         "plain_ms": device_or_call(checks[k], "plain"),
         "bound_ms": checks[k]["bound_us"] / 1e3,

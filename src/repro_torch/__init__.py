@@ -13,8 +13,9 @@ as copies.
 
 Entry points take ``device=`` and default to the card; without a visible
 GPU they raise and ask for ``device="cpu"`` instead of quietly running on
-the CPU.
+the CPU.  ``serving`` holds the GED services and ``launch`` their entry
+point (``python -m repro_torch.launch.serve --mode ged``).
 """
 
-__all__ = ["core", "data", "ged", "kernels", "parallel", "runtime",
-           "store_io"]
+__all__ = ["core", "data", "ged", "kernels", "launch", "parallel",
+           "runtime", "serving", "store_io"]

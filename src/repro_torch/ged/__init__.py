@@ -4,8 +4,10 @@ The same facade as ``repro.ged`` (:class:`GedEngine` / :func:`compute` /
 :func:`verify`, one :class:`GedOutcome` per pair) over the port's
 backends: ``"auto"`` (the default: escalating engine rungs, then the host
 solver; always certified), ``"exact"`` (the host solver), ``"cuda"``
-(hand-written kernels) and ``"torch"`` (plain PyTorch).  Entry points run
-on the card unless given ``device="cpu"``.  In front of every backend sits
+(hand-written kernels), ``"torch"`` (plain PyTorch) and ``"sharded"``
+(the plain engine with every batch split over the devices of a flat
+``mesh``, :class:`ShardedExecutor`; ``"auto"`` takes ``mesh=`` too).
+Entry points run on the card unless given ``device="cpu"``.  In front of every backend sits
 the result cache (:class:`ResultCache`, keyed on :func:`graph_digest` or
 :func:`wl_digest` pair digests, with an optional cross-process tier on
 disk), and :meth:`GedEngine.submit` / :meth:`GedEngine.flush` stream
@@ -36,9 +38,9 @@ from repro_torch.ged.backends import (AutoBackend, ExactBackend,
                                       available_backends, make_backend,
                                       register_backend)
 from repro_torch.ged.exec import (Executor, PendingBatch, ResultCache,
-                                  SketchSpec, batch_signatures,
-                                  engine_outcome, graph_digest, wl_digest,
-                                  wl_signature)
+                                  ShardedExecutor, SketchSpec,
+                                  batch_signatures, engine_outcome,
+                                  graph_digest, wl_digest, wl_signature)
 from repro_torch.ged.faults import (Deadline, FaultInjector, InjectedFault,
                                     Overloaded, RetryPolicy)
 from repro_torch.ged.index import CandidateIndex, sketch_damage
@@ -69,6 +71,7 @@ __all__ = [
     "slot_bucket",
     "Plan",
     "Executor",
+    "ShardedExecutor",
     "PendingBatch",
     "engine_outcome",
     "KernelDispatch",

@@ -49,22 +49,13 @@ from repro_torch.ged.faults import (Deadline, FaultInjector, RetryPolicy,
 from repro_torch.ged.plan import Vocab, as_graph, as_pairs, build_plan
 from repro_torch.ged.results import GedOutcome
 from repro_torch.kernels.autotune import autotune_stats, enable_autotune
+from repro_torch.parallel.sharding import Mesh
 from repro_torch.store_io.shared_cache import (SHARED_CACHE_ENV,
                                                SharedResultCache)
 
 Taus = Union[float, Sequence[float]]
 
 _CONFIG_FIELDS = {f.name for f in dataclasses.fields(EngineConfig)}
-
-# options of the reference's GedEngine that the port does not have yet
-_NOT_PORTED_OPTIONS = ("mesh",)
-
-
-def _refuse_unported(options) -> None:
-    asked = sorted(set(options) & set(_NOT_PORTED_OPTIONS))
-    if asked:
-        raise TypeError(f"GedEngine options {asked} are not ported yet "
-                        "(see ROADMAP.md, queue 1)")
 
 
 class GedEngine:
@@ -73,14 +64,25 @@ class GedEngine:
     Parameters
     ----------
     backend : ``"auto"`` (default) | ``"exact"`` | ``"cuda"`` | ``"torch"``
-        or any name registered via :func:`repro_torch.ged.register_backend`.
+        | ``"sharded"`` or any name registered via
+        :func:`repro_torch.ged.register_backend`.
         ``"auto"`` escalates uncertified pairs through growing engine rungs
         to the host solver, so every answer is certified; ``"exact"`` is
         the host solver alone; ``"cuda"`` runs the engine with the
         hand-written kernels on the hot path, ``"torch"`` the plain
-        PyTorch engine, both with identical outcomes.
+        PyTorch engine, ``"sharded"`` the plain engine with every batch
+        split over the devices of ``mesh``, all with identical outcomes.
     device : ``"cuda"`` (default) or ``"cpu"``.  The default needs a
         visible GPU and raises without one.
+    mesh : devices for the ``"sharded"`` and ``"auto"`` backends, a flat
+        sequence such as ``["cuda:0", "cuda:1"]`` or ``["cpu"] * 4``
+        (:func:`repro_torch.parallel.sharding.pair_devices`): each batch
+        is padded to a multiple of its length and split into one
+        contiguous shard per entry.  ``"sharded"`` defaults to every
+        visible card; ``"auto"`` runs on one device unless a mesh is
+        given.  A nested or mixed mesh, or a ``device`` that disagrees
+        with it, raises ``ValueError``.  The other backends ignore it, as
+        in the reference.
     slots : pin every batch to this slot count instead of per-pair
         power-of-two bucketing.
     vocab : optional ``(vertex_labels, edge_labels)`` universe shared by
@@ -141,11 +143,10 @@ class GedEngine:
     Remaining keyword arguments (``pool``, ``expand``, ``max_iters``,
     ``sweeps``, ``bound``, ``strategy``, ``use_kernel``, ``dispatch``)
     override :class:`EngineConfig` defaults.  ``use_kernel`` is implied by
-    ``"torch"`` (False) and ``"cuda"`` (True): a contradicting boolean
-    raises, while ``use_kernel="auto"`` is accepted on every backend — it
-    picks among bit-identical implementations, so outcomes never change.
-    The reference's ``mesh`` is not ported yet; passing it raises
-    ``TypeError``.
+    ``"torch"`` and ``"sharded"`` (False) and ``"cuda"`` (True): a
+    contradicting boolean raises, while ``use_kernel="auto"`` is accepted
+    on every backend — it picks among bit-identical implementations, so
+    outcomes never change.
 
     >>> from repro_torch import ged
     >>> q, g = ([0, 1], [(0, 1, 1)]), ([0, 2], [(0, 1, 1)])
@@ -167,6 +168,7 @@ class GedEngine:
 
     def __init__(self, backend: str = "auto", *,
                  device: DeviceLike = None,
+                 mesh: Mesh = None,
                  slots: Optional[int] = None,
                  vocab: Optional[Vocab] = None,
                  batch_size: int = 256,
@@ -184,7 +186,6 @@ class GedEngine:
                  retry: Optional[RetryPolicy] = None,
                  config: Optional[EngineConfig] = None,
                  **config_overrides):
-        _refuse_unported(config_overrides)
         unknown = set(config_overrides) - _CONFIG_FIELDS
         if unknown:
             raise TypeError(f"unknown GedEngine options: {sorted(unknown)}")
@@ -214,8 +215,8 @@ class GedEngine:
         self.shared_cache_dir = shared_cache_dir
         self._pending: List[Tuple[object, object, Optional[float]]] = []
         self._backend: Backend = make_backend(
-            backend, device=device, batch_size=batch_size, overlap=overlap,
-            max_in_flight=max_in_flight)
+            backend, device=device, mesh=mesh, batch_size=batch_size,
+            overlap=overlap, max_in_flight=max_in_flight)
         self.backend = self._backend.name
         self.device = getattr(getattr(self._backend, "executor", None),
                               "device", None)
@@ -409,7 +410,6 @@ class GedEngine:
              deadline_s: Union[None, float, Deadline] = None,
              per_pair_deadline_s: Optional[float] = None
              ) -> List[GedOutcome]:
-        _refuse_unported(overrides)
         unknown = set(overrides) - _CONFIG_FIELDS
         if unknown:
             raise TypeError(f"unknown engine options: {sorted(unknown)}")

@@ -18,9 +18,12 @@ the executor (:mod:`repro_torch.ged.exec`) owns the device.
 * ``"cuda"``  — the same engine with the hand-written CUDA kernels on the
   hot path (``use_kernel=True``); the reference's ``"pallas"``.  On a CPU
   device the kernel wrappers use their plain twins.
+* ``"sharded"`` — the ``"torch"`` policy on a
+  :class:`~repro_torch.ged.exec.ShardedExecutor`: every batch split over
+  the devices of a flat ``mesh``; the same outcomes as ``"torch"``.
+  ``"auto"`` given a ``mesh`` runs its rungs on one too.
 
-The reference's ``"sharded"`` backend is still to port (``ROADMAP.md``,
-queue 1).  Backends take an optional ``ctx``
+Backends take an optional ``ctx``
 (:class:`repro_torch.ged.faults.RunContext`): the deadline (a pair the
 budget never reached answers uncertified with admissible bounds,
 ``timed_out``), the fault injector and the retry policy.  A bucket whose
@@ -45,7 +48,8 @@ from repro_torch.core.engine.search import EngineConfig
 from repro_torch.core.exact.search import ged as exact_ged
 from repro_torch.core.exact.search import ged_verify
 from repro_torch.ged import faults
-from repro_torch.ged.exec import Executor, PendingBatch, engine_outcome
+from repro_torch.ged.exec import (Executor, PendingBatch, ShardedExecutor,
+                                  engine_outcome)
 from repro_torch.ged.plan import Bucket, Plan
 from repro_torch.ged.results import GedOutcome
 from repro_torch.runtime.scheduler import Batch, GedScheduler, difficulty
@@ -265,6 +269,24 @@ class CudaBackend(EngineBackend):
     kernel_default = True
 
 
+class ShardedBackend(EngineBackend):
+    """The ``"torch"`` policy on a :class:`ShardedExecutor`: each batch is
+    split over the devices of a flat ``mesh`` (default: every visible
+    card, or the one device ``device`` names).  Only the placement
+    differs, so outcomes equal ``"torch"``'s.  ``dispatch=`` puts the
+    kernels on its path.
+
+    >>> ShardedBackend(mesh=["cpu"] * 2).batch_multiple
+    2
+    """
+
+    name = "sharded"
+    kernel_default = False
+
+    def __init__(self, mesh=None, device=None) -> None:
+        super().__init__(executor=ShardedExecutor(mesh, device))
+
+
 # ------------------------------------------------------------ escalation
 
 @dataclasses.dataclass
@@ -306,6 +328,12 @@ class AutoBackend:
     a batch has finished when its dispatch returns and ``overlap_saved_s``
     stays near 0.
 
+    The policy composes with any executor: a single-device
+    :class:`~repro_torch.ged.exec.Executor` by default, a
+    :class:`~repro_torch.ged.exec.ShardedExecutor` over ``mesh`` when one
+    is given (what ``GedEngine("auto", mesh=...)`` builds), or an
+    explicit ``executor=``.  Outcomes are the same whatever the placement.
+
     >>> from repro_torch.ged.plan import build_plan
     >>> auto = AutoBackend(device="cpu")
     >>> out, = auto.run(build_plan([(([0, 1], [(0, 1, 1)]),
@@ -319,10 +347,13 @@ class AutoBackend:
     kernel_default = None  # honors cfg.use_kernel on the engine rungs
 
     def __init__(self, batch_size: int = 256, device=None,
-                 executor: Optional[Executor] = None, overlap: bool = True,
-                 max_in_flight: int = 4):
+                 executor: Optional[Executor] = None, mesh=None,
+                 overlap: bool = True, max_in_flight: int = 4):
+        if executor is None:
+            executor = ShardedExecutor(mesh, device) if mesh is not None \
+                else Executor(device)
         self.scheduler = GedScheduler(batch_size)
-        self.executor = executor or Executor(device)
+        self.executor = executor
         self.overlap = bool(overlap)
         self.max_in_flight = max(1, int(max_in_flight))
         self.stats: Dict[str, float] = {"pairs": 0, "escalated": 0,
@@ -529,9 +560,6 @@ class AutoBackend:
 
 _REGISTRY: Dict[str, Callable[..., Backend]] = {}
 
-# reference backends this port does not have yet
-_NOT_PORTED = ("sharded",)
-
 
 def register_backend(name: str, factory: Callable[..., Backend]) -> None:
     """Make ``GedEngine(backend=name)`` constructible; ``factory`` receives
@@ -543,7 +571,7 @@ def available_backends() -> tuple:
     """Sorted names ``GedEngine(backend=...)`` accepts right now.
 
     >>> available_backends()
-    ('auto', 'cuda', 'exact', 'torch')
+    ('auto', 'cuda', 'exact', 'sharded', 'torch')
     """
     return tuple(sorted(_REGISTRY))
 
@@ -554,10 +582,6 @@ def make_backend(name: str, **options) -> Backend:
     >>> make_backend("torch", device="cpu", unused=1).name
     'torch'
     """
-    if name in _NOT_PORTED and name not in _REGISTRY:
-        raise ValueError(
-            f"backend {name!r} is not ported yet (see ROADMAP.md, queue 1); "
-            f"available: {available_backends()}")
     try:
         factory = _REGISTRY[name]
     except KeyError:
@@ -576,3 +600,4 @@ register_backend("auto", AutoBackend)
 register_backend("exact", ExactBackend)
 register_backend("torch", EngineBackend)
 register_backend("cuda", CudaBackend)
+register_backend("sharded", ShardedBackend)

@@ -6,9 +6,12 @@ Backends (:mod:`repro_torch.ged.backends`) are policies; everything about
 * :class:`Executor` — runs packed buckets on one torch device: packing
   with its batch-shape policy, the ``use_kernel="auto"`` dispatch
   resolution, the move onto the device and invocation counters.
+* :class:`ShardedExecutor` — the same over several devices (a flat
+  ``mesh``, :func:`repro_torch.parallel.sharding.pair_devices`): each
+  batch is split into one contiguous shard per mesh entry.
 * :class:`PendingBatch` — the future :meth:`Executor.run_packed_async`
   returns; :meth:`PendingBatch.ready` polls without blocking and
-  :meth:`PendingBatch.result` hands back numpy.
+  :meth:`PendingBatch.result` hands back numpy, shards in batch order.
 * :func:`engine_outcome` — one :class:`GedOutcome` from a row of a result.
 * :class:`ResultCache` — the engine-level outcome cache keyed on canonical
   pair digests (:func:`graph_digest` / :func:`wl_digest`; label-vocab
@@ -38,11 +41,13 @@ failure is injected or the device is the CPU, and raises it otherwise
 from __future__ import annotations
 
 import collections
+import concurrent.futures
+import contextlib
 import dataclasses
 import hashlib
 import os
 import time
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -55,6 +60,7 @@ from repro_torch.ged import faults
 from repro_torch.ged.plan import Bucket, Vocab, pack_bucket
 from repro_torch.ged.results import GedOutcome, engine_mapping
 from repro_torch.kernels import _build, autotune
+from repro_torch.parallel.sharding import Mesh, pair_devices
 
 
 # ------------------------------------------------- persistent compile cache
@@ -112,14 +118,16 @@ def persistent_cache_stats() -> Dict[str, float]:
 class PendingBatch:
     """One dispatched-but-not-yet-drained engine invocation.
 
-    Wraps the dict of torch tensors a dispatch produced.  On the card a
-    CUDA event is recorded on the current stream when the batch is
-    wrapped: :meth:`ready` polls it without blocking, :meth:`result`
-    blocks once and caches the numpy conversion.  CPU tensors are always
-    ready.  The search loop reads its termination flag on the host every
-    iteration, so on the card a batch has all but finished by the time it
-    is wrapped; ``ready`` is what the overlapped ``auto`` backend polls
-    all the same.
+    Wraps the dict of torch tensors a dispatch produced, or one such dict
+    per shard (a :class:`ShardedExecutor` batch, shards in batch order,
+    possibly on several devices).  On the card a CUDA event is recorded on
+    each shard's device's current stream when the batch is wrapped:
+    :meth:`ready` polls them without blocking, :meth:`result` blocks once
+    and caches the numpy conversion, the shards' rows concatenated in
+    batch order.  CPU tensors are always ready.  The search loop reads its
+    termination flag on the host every iteration, so on the card a batch
+    has all but finished by the time it is wrapped; ``ready`` is what the
+    overlapped ``auto`` backend polls all the same.
 
     ``check`` is the deterministic fault-injection hook of the
     materialisation window (the ``result`` site), run before the
@@ -134,35 +142,43 @@ class PendingBatch:
     True
     >>> p.result()["ged"]
     array([0., 0.], dtype=float32)
+    >>> PendingBatch([{"ged": torch.zeros(1)},
+    ...               {"ged": torch.ones(1)}]).result()["ged"]
+    array([0., 1.], dtype=float32)
     """
 
-    def __init__(self, tensors: Dict[str, torch.Tensor], check=None,
-                 flags: Optional[Dict[str, float]] = None):
-        self._tensors = tensors
+    def __init__(self, tensors: Union[Dict[str, torch.Tensor],
+                                      Sequence[Dict[str, torch.Tensor]]],
+                 check=None, flags: Optional[Dict[str, float]] = None):
+        self._shards: Optional[List[Dict[str, torch.Tensor]]] = (
+            [tensors] if isinstance(tensors, dict) else list(tensors))
         self._result: Optional[Dict[str, np.ndarray]] = None
         self._check = check
         self.flags: Dict[str, float] = {} if flags is None else flags
-        self._event = None
-        devices = {t.device for t in tensors.values()}
-        if len(devices) == 1 and next(iter(devices)).type == "cuda":
-            self._event = torch.cuda.Event()
-            self._event.record(torch.cuda.current_stream(
-                next(iter(devices))))
+        self._events = []
+        for shard in self._shards:
+            devices = {t.device for t in shard.values()}
+            if len(devices) == 1 and next(iter(devices)).type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(next(iter(devices))))
+                self._events.append(event)
 
     def ready(self) -> bool:
         """True when every output has landed (never blocks)."""
-        return (self._result is not None or self._event is None
-                or self._event.query())
+        return self._result is not None or all(e.query()
+                                               for e in self._events)
 
     def result(self) -> Dict[str, np.ndarray]:
         """Block until the batch lands; numpy result dict (cached)."""
         if self._result is None:
             if self._check is not None:
                 self._check()
-            self._result = {k: v.cpu().numpy()
-                            for k, v in self._tensors.items()}
-            self._tensors = None
-            self._event = None
+            shards = self._shards
+            self._result = {k: np.concatenate([s[k].cpu().numpy()
+                                               for s in shards])
+                            for k in shards[0]}
+            self._shards = None
+            self._events = []
         return self._result
 
 
@@ -182,6 +198,11 @@ class Executor:
     def batch_multiple(self) -> int:
         """Every bucket batch must be a multiple of this (one device: 1)."""
         return 1
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        """The devices a batch's shards run on, in shard order."""
+        return (self.device,)
 
     def pack(self, pairs, slots: int, vocab: Optional[Vocab]):
         """Pack ``pairs`` with this executor's batch-shape policy; returns
@@ -239,8 +260,7 @@ class Executor:
                     inj.check("dispatch", rung)
                     if bool(cfg.use_kernel):
                         inj.check("kernel", rung)
-                tensors = engine_api.dispatch_packed(
-                    packed, taus, cfg, verification, device=self.device)
+                tensors = self._dispatch(packed, taus, cfg, verification)
                 check = None
                 if inj is not None:
                     check = (lambda: inj.check("result", rung))
@@ -281,6 +301,111 @@ class Executor:
         return self.run_packed_async(bucket.packed, bucket.pad_values(taus),
                                      cfg, verification, real=bucket.real,
                                      ctx=ctx, rung=rung)
+
+    def _dispatch(self, packed, taus, cfg, verification):
+        """Start the device work; a dict of torch tensors (or one per
+        shard) whose CUDA work may still be in flight."""
+        return engine_api.dispatch_packed(packed, taus, cfg, verification,
+                                          device=self.device)
+
+
+def _rows(packed, lo: int, hi: int):
+    """Rows ``lo:hi`` of a packed batch (the label counts stay global)."""
+    return dataclasses.replace(
+        packed, qv=packed.qv[lo:hi], gv=packed.gv[lo:hi],
+        qa=packed.qa[lo:hi], ga=packed.ga[lo:hi],
+        order=packed.order[lo:hi], n=packed.n[lo:hi])
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for CUDA work in this thread."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+class ShardedExecutor(Executor):
+    """Split each pair batch over the devices of a flat ``mesh``.
+
+    ``mesh`` is a sequence of torch devices
+    (:func:`repro_torch.parallel.sharding.pair_devices`); ``None`` means
+    every visible card, or the one device ``device`` names.  A batch
+    (padded by :func:`repro_torch.ged.plan.pack_bucket` to
+    ``batch_multiple``, the mesh's length) is cut into contiguous, equal
+    shards, shard ``i`` running :func:`dispatch_packed` on ``mesh[i]``
+    with that device current.  One worker thread per distinct device runs
+    its shards in order (one distinct device: the caller's thread), and
+    the dispatch joins them before it returns, so a shard's failure is
+    raised inside the retry loop of :meth:`Executor._robust_dispatch`.
+    The search is per pair, so outcomes equal the single-device run's.
+
+    Any policy composes with it: ``GedEngine("sharded")`` is the plain
+    engine policy on this executor, ``GedEngine("auto", mesh=...)`` the
+    escalation policy.  A one-device mesh is the single-device path
+    (``stats["single_device_fastpath"]`` counts those dispatches).
+
+    >>> ex = ShardedExecutor(["cpu"] * 4)
+    >>> ex.batch_multiple, ex.stats["single_device_fastpath"]
+    (4, 0)
+    >>> ShardedExecutor(device="cpu").batch_multiple
+    1
+    """
+
+    name = "sharded"
+
+    def __init__(self, mesh: Mesh = None, device: DeviceLike = None):
+        self._devices = pair_devices(mesh, device)
+        super().__init__(self._devices[0])
+        self.stats["single_device_fastpath"] = 0
+
+    @property
+    def batch_multiple(self) -> int:
+        return len(self._devices)
+
+    @property
+    def devices(self) -> Tuple[torch.device, ...]:
+        return self._devices
+
+    def _dispatch(self, packed, taus, cfg, verification):
+        if len(self._devices) == 1:
+            # one shard: nothing to split
+            self.stats["single_device_fastpath"] += 1
+            return super()._dispatch(packed, taus, cfg, verification)
+        if packed.batch % len(self._devices):
+            raise ValueError(
+                f"batch {packed.batch} is not a multiple of the executor's "
+                f"{len(self._devices)} shards; pack with batch_multiple="
+                f"{len(self._devices)} (GedEngine does this automatically)")
+        size = packed.batch // len(self._devices)
+        taus = np.asarray(taus, dtype=np.float32)
+        per_device: Dict[torch.device, List[int]] = {}
+        for i, d in enumerate(self._devices):
+            per_device.setdefault(d, []).append(i)
+
+        def run(shards: List[int]) -> List[Dict[str, torch.Tensor]]:
+            outs = []
+            for i in shards:
+                d, lo = self._devices[i], i * size
+                with _on(d):
+                    outs.append(engine_api.dispatch_packed(
+                        _rows(packed, lo, lo + size), taus[lo:lo + size],
+                        cfg, verification, device=d))
+            return outs
+
+        groups = list(per_device.values())
+        if len(groups) == 1:
+            return run(groups[0])
+        # leaving the block waits for every worker, so every shard has
+        # ended before a failed one raises
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=len(groups),
+                thread_name_prefix="repro-torch-shard") as pool:
+            futures = [pool.submit(run, g) for g in groups]
+        out: List[Optional[Dict[str, torch.Tensor]]] = [None] * len(
+            self._devices)
+        for g, f in zip(groups, futures):
+            for i, shard in zip(g, f.result()):
+                out[i] = shard
+        return out
 
 
 def engine_outcome(out: Dict[str, np.ndarray], packed, bi: int,
@@ -514,9 +639,12 @@ def batch_signatures(graphs: Sequence[Graph],
     shapes), packed into ``(batch, slots)`` label/mask and
     ``(batch, slots, slots)`` adjacency tensors in chunks of ``chunk``
     rows, and hashed with batched torch ops (``scatter_add_`` bins the
-    histograms).  Returns ``(len(graphs), spec.dims)`` int32 on the host,
-    row order = input order, bit-identical to the host path and to the
-    reference's ``batch_signatures``:
+    histograms).  On a :class:`ShardedExecutor` each chunk is padded to
+    the shard multiple and split into one contiguous shard per mesh
+    device, as the reference splits it over its mesh.  Returns
+    ``(len(graphs), spec.dims)`` int32 on the host, row order = input
+    order, bit-identical to the host path and to the reference's
+    ``batch_signatures``:
 
     >>> from repro_torch.ged.plan import as_graph
     >>> g = as_graph(([0, 1, 0], [(0, 1, 1), (1, 2, 2)]))
@@ -528,7 +656,8 @@ def batch_signatures(graphs: Sequence[Graph],
     sigs = np.zeros((len(graphs), spec.dims), dtype=np.int32)
     if not len(graphs):
         return sigs
-    device = (executor or Executor()).device
+    devices = (executor or Executor()).devices
+    mult = len(devices)
     by_slots: Dict[int, list] = {}
     for i, g in enumerate(graphs):
         by_slots.setdefault(slot_bucket(g.n), []).append(i)
@@ -536,17 +665,22 @@ def batch_signatures(graphs: Sequence[Graph],
         idxs = by_slots[slots]
         for lo in range(0, len(idxs), chunk):
             part = idxs[lo:lo + chunk]
-            vlab = np.zeros((len(part), slots), dtype=np.int64)
-            mask = np.zeros((len(part), slots), dtype=np.int64)
-            adj = np.zeros((len(part), slots, slots), dtype=np.int64)
+            batch = -(-len(part) // mult) * mult
+            vlab = np.zeros((batch, slots), dtype=np.int64)
+            mask = np.zeros((batch, slots), dtype=np.int64)
+            adj = np.zeros((batch, slots, slots), dtype=np.int64)
             for r, gi in enumerate(part):
                 g = graphs[gi]
                 vlab[r, :g.n] = g.vlabels
                 mask[r, :g.n] = 1
                 adj[r, :g.n, :g.n] = g.adj
-            out = _signatures(*(torch.from_numpy(a).to(device)
-                                for a in (vlab, mask, adj)), spec)
-            sigs[np.asarray(part, dtype=np.int64)] = out.cpu().numpy()
+            size = batch // mult
+            # every shard is started before any is read back
+            outs = [_signatures(*(torch.from_numpy(a[s * size:(s + 1) * size])
+                                  .to(d) for a in (vlab, mask, adj)), spec)
+                    for s, d in enumerate(devices)]
+            out = np.concatenate([o.cpu().numpy() for o in outs])
+            sigs[np.asarray(part, dtype=np.int64)] = out[:len(part)]
     return sigs
 
 

@@ -7,8 +7,15 @@ resident on the executor's device, and one vectorized scan per bucket
 that scores a query against the whole bucket with sound lower bounds.  A
 scan uploads only the query's feature row; the reference re-uploads the
 bucket's arrays on every scan.  The counterpart of
-``repro/ged/filters.py``; the reference's ``shard_map`` branch waits for
-the port's ``ShardedExecutor``.
+``repro/ged/filters.py``.
+
+On a :class:`~repro_torch.ged.exec.ShardedExecutor` each bucket's rows
+are split into one contiguous slice per mesh device, each resident on its
+device and padded to one length (the resident rows are a multiple of the
+shard count; the host arrays stay unpadded); a scan copies the query's
+row to every device and gathers the bounds in row order, so
+``GraphStore(mesh=...)`` splits the stage-0 scan as it splits
+verification batches.
 """
 
 from __future__ import annotations
@@ -31,12 +38,18 @@ from repro_torch.ged.plan import Vocab, slot_bucket
 @dataclasses.dataclass
 class FeatureBucket:
     """One slot bucket of the corpus: ids, host feature arrays (possibly
-    mmap-backed after a warm open) and their copies on the device."""
+    mmap-backed after a warm open) and their copies on the devices, one
+    contiguous row slice per shard, each padded to the same length."""
 
     slots: int
     ids: List[int]                      # corpus positions, ingest order
     features: CorpusFeatures
-    resident: Tuple[torch.Tensor, ...]  # the features' arrays on device
+    shards: List[Tuple[torch.Tensor, ...]]  # per mesh device, in order
+
+    @property
+    def resident(self) -> Tuple[torch.Tensor, ...]:
+        """Every resident feature tensor, shard after shard."""
+        return tuple(t for shard in self.shards for t in shard)
 
 
 class FilterIndex:
@@ -83,10 +96,18 @@ class FilterIndex:
 
     def _bucket(self, slots: int, bids: List[int],
                 feats: CorpusFeatures) -> FeatureBucket:
-        dev = self.executor.device
-        resident = tuple(torch.from_numpy(np.array(a, dtype=np.float32))
-                         .to(dev) for a in feats.arrays())
-        return FeatureBucket(slots, bids, feats, resident)
+        """Put one contiguous slice of the bucket's rows on each of the
+        executor's devices, every slice padded to one length (the filler
+        repeats the last row; nothing on one device)."""
+        devices = self.executor.devices
+        size = -(-feats.batch // len(devices))
+        take = np.minimum(np.arange(size * len(devices)),
+                          max(feats.batch - 1, 0))
+        shards = [tuple(torch.from_numpy(np.asarray(
+                      a[take[i * size:(i + 1) * size]], dtype=np.float32))
+                        .to(d) for a in feats.arrays())
+                  for i, d in enumerate(devices)]
+        return FeatureBucket(slots, bids, feats, shards)
 
     def _reindex(self) -> None:
         # id order the scan output follows (bucket construction order)
@@ -138,7 +159,8 @@ class FilterIndex:
         self.stats["scans"] += 1
         parts = []
         for b in self.buckets:
-            parts.append(self._dispatch(query, b.resident, b.slots))
+            parts.append(self._scan_shards(
+                query, b.shards, b.slots)[:len(b.ids)])
             self.stats["scanned"] += len(b.ids)
         return np.concatenate(parts) if parts \
             else np.zeros(0, dtype=np.float32)
@@ -153,9 +175,10 @@ class FilterIndex:
         after a candidate index already pruned the rest of the corpus.
 
         The requested rows are gathered out of the resident per-bucket
-        feature tensors on the device and scored like a full bucket.
-        ``stats["scanned"]`` counts the *requested* rows, which is what
-        makes the store's funnel ratios honest about index savings.
+        feature tensors on the devices that hold them and scored like a
+        full bucket.  ``stats["scanned"]`` counts the *requested* rows,
+        which is what makes the store's funnel ratios honest about index
+        savings.
         """
         self.stats["scans"] += 1
         self.stats["subset_scans"] += 1
@@ -166,29 +189,51 @@ class FilterIndex:
         for bi in sorted(by_bucket):
             b = self.buckets[bi]
             gids = by_bucket[bi]
-            rows = torch.as_tensor([self._where[g][1] for g in gids],
-                                   dtype=torch.int64,
-                                   device=self.executor.device)
-            feats = tuple(a.index_select(0, rows) for a in b.resident)
-            vals = self._dispatch(query, feats, b.slots)
+            size = b.shards[0][0].shape[0]
+            # (shard, row within it) of each requested id
+            where = [divmod(self._where[g][1], size) for g in gids]
+            picked, order = [], []
+            for si, shard in enumerate(b.shards):
+                mine = [k for k, (s, _) in enumerate(where) if s == si]
+                if not mine:
+                    continue
+                rows = torch.as_tensor([where[k][1] for k in mine],
+                                       dtype=torch.int64,
+                                       device=shard[0].device)
+                picked.append(tuple(a.index_select(0, rows) for a in shard))
+                order.extend(mine)
+            vals = np.empty(len(gids), dtype=np.float32)
+            vals[np.asarray(order, dtype=np.int64)] = self._scan_shards(
+                query, picked, b.slots)
             self.stats["scanned"] += len(gids)
             out.update(zip(gids, vals.tolist()))
         return out
 
     # --------------------------------------------------------- internal
 
-    def _dispatch(self, query: Graph, cf: Tuple[torch.Tensor, ...],
-                  slots: int) -> np.ndarray:
-        """Score ``query`` against one bucket's device tensors; host f32."""
-        cvh, ceh, cdeg, cn, cm = cf
+    def _scan_shards(self, query: Graph,
+                     shards: Sequence[Tuple[torch.Tensor, ...]],
+                     slots: int) -> np.ndarray:
+        """Score ``query`` against each shard's tensors on its own device;
+        host f32 in shard order.  Every shard is started before any is
+        read back."""
+        cvh = shards[0][0]
         width = max(slots, slot_bucket(query.n))
-        shape = (slots, cvh.shape[0], width, cvh.shape[1], ceh.shape[1])
+        shape = (slots, sum(s[0].shape[0] for s in shards), width,
+                 cvh.shape[1], shards[0][1].shape[1])
         if shape not in self._shapes:
             self._shapes.add(shape)
             corpus.note_scan_shape()
         qf = graph_features([query], self.vocab, width=width)
-        dev = self.executor.device
-        q = [torch.as_tensor(a[0], device=dev) for a in qf.arrays()]
-        if width > cdeg.shape[1]:
-            cdeg = F.pad(cdeg, (0, width - cdeg.shape[1]))
-        return stage0_lower_bounds(*q, cvh, ceh, cdeg, cn, cm).cpu().numpy()
+        on: Dict[torch.device, list] = {}
+        outs = []
+        for cvh, ceh, cdeg, cn, cm in shards:
+            dev = cvh.device
+            if dev not in on:
+                on[dev] = [torch.as_tensor(a[0], device=dev)
+                           for a in qf.arrays()]
+            if width > cdeg.shape[1]:
+                cdeg = F.pad(cdeg, (0, width - cdeg.shape[1]))
+            outs.append(stage0_lower_bounds(*on[dev], cvh, ceh, cdeg, cn,
+                                            cm))
+        return np.concatenate([o.cpu().numpy() for o in outs])

@@ -41,8 +41,8 @@ part of the API contract.  :meth:`GraphStore.save` /
 (:mod:`repro_torch.store_io.graphstore_io`); a warm open re-packs and
 re-hashes nothing.  :meth:`add` / :meth:`remove` journal mutations,
 folded by :meth:`compact`.  The store runs on the card unless given
-``device="cpu"``; the reference's ``mesh=`` is not ported yet and raises
-``TypeError``.
+``device="cpu"`` (or a CPU ``mesh``); ``mesh=`` splits the stage-0
+features, the signature build, stage 1 and stage 2 over several devices.
 """
 
 from __future__ import annotations
@@ -58,9 +58,10 @@ import numpy as np
 from repro_torch.core.exact.graph import Graph
 from repro_torch.core.exact.search import ged_verify
 from repro_torch.device import DeviceLike
-from repro_torch.ged.api import GedEngine, _refuse_unported
-from repro_torch.ged.exec import (DIGESTS, Executor, detached,
-                                  engine_outcome, graph_digest, wl_digest)
+from repro_torch.ged.api import GedEngine
+from repro_torch.ged.exec import (DIGESTS, Executor, ShardedExecutor,
+                                  detached, engine_outcome, graph_digest,
+                                  wl_digest)
 from repro_torch.ged.filters import FilterIndex
 from repro_torch.ged.index import CandidateIndex
 from repro_torch.ged.plan import (Plan, Vocab, as_graph, graphs_vocab,
@@ -80,14 +81,17 @@ class GraphStore:
     graphs : corpus in any :func:`repro_torch.ged.plan.as_graph` form.
     vocab : optional label universe; extended automatically when the
         corpus (or a query) introduces labels beyond it.
-    backend / device / engine : verification engine for stage 2 — default
-        a fresh ``GedEngine("auto", device=device)`` (certified answers).
-        ``device`` (default: the card) also places the stage-0 features,
-        the signature build and the stage-1 pass.  Pass an existing
-        ``engine=`` to share its executor and result cache — exclusive
-        with ``backend`` and engine keyword options (and with ``device``
-        when the engine has its own executor), which would otherwise be
-        silently ignored.
+    backend / device / mesh / engine : verification engine for stage 2 —
+        default a fresh ``GedEngine("auto", device=device, mesh=mesh)``
+        (certified answers).  ``device`` (default: the card) also places
+        the stage-0 features, the signature build and the stage-1 pass;
+        ``mesh`` (a flat device sequence, see
+        :class:`~repro_torch.ged.exec.ShardedExecutor`) splits all of them
+        over its devices.  Pass an existing ``engine=`` to share its
+        executor and result cache — exclusive with ``backend``, ``mesh``
+        and engine keyword options (and with ``device`` when the engine
+        has its own executor), which would otherwise be silently
+        ignored.
     digest : ``"wl"`` (default) additionally dedups *isomorphic* corpus
         entries: WL-digest collisions are candidate groups, and every
         candidate merge is confirmed by a certified zero-distance check
@@ -106,8 +110,7 @@ class GraphStore:
         used as-is; ``None`` disables stage −1 — every query then runs
         the previous full-scan pipeline bit-for-bit.
     Remaining keyword arguments go to the :class:`GedEngine` constructor
-    (``cache=``, ``pool=``, ``batch_size=``, ``use_kernel=`` ...).  The
-    reference's ``mesh=`` raises ``TypeError`` (not ported yet).
+    (``cache=``, ``pool=``, ``batch_size=``, ``use_kernel=`` ...).
 
     Corpus ids are stable handles: :meth:`add` assigns fresh ids past
     every id ever issued and :meth:`remove` tombstones (ids are never
@@ -137,10 +140,9 @@ class GraphStore:
 
     def __init__(self, graphs, *, vocab: Optional[Vocab] = None,
                  backend: str = "auto", device: DeviceLike = None,
-                 engine: Optional[GedEngine] = None,
+                 mesh=None, engine: Optional[GedEngine] = None,
                  digest: str = "wl", filter_iters: int = 2,
                  filter_pool: int = 32, index="auto", **engine_options):
-        _refuse_unported(engine_options)
         if digest not in DIGESTS:
             raise ValueError(f"unknown digest {digest!r}; "
                              f"expected one of {sorted(DIGESTS)}")
@@ -155,7 +157,7 @@ class GraphStore:
         self._journal_base = 0
         self.compact_every = 64
         self._dedup_checks = 0
-        self._init_engine(backend, device, engine, engine_options)
+        self._init_engine(backend, device, mesh, engine, engine_options)
         self._init_counts()
         t0 = time.perf_counter()
         self._ingest(range(len(self.graphs)), vocab)
@@ -177,18 +179,19 @@ class GraphStore:
             f"index= expects None, 'auto', a knob dict, or a "
             f"CandidateIndex; got {index!r}")
 
-    def _init_engine(self, backend: str, device: DeviceLike,
+    def _init_engine(self, backend: str, device: DeviceLike, mesh,
                      engine: Optional[GedEngine],
                      engine_options: Dict) -> None:
         executor = getattr(getattr(engine, "_backend", None), "executor",
                            None)
         placed = device is not None and executor is not None
         if engine is not None and (backend != "auto" or placed
-                                   or engine_options):
+                                   or mesh is not None or engine_options):
             # a supplied engine brings its own backend, placement and
             # config — accepting these too would silently ignore them
             clash = sorted(engine_options) + \
                 (["device"] if placed else []) + \
+                (["mesh"] if mesh is not None else []) + \
                 ([f"backend={backend!r}"] if backend != "auto" else [])
             raise TypeError(
                 f"engine= is exclusive with engine construction options "
@@ -197,12 +200,16 @@ class GraphStore:
             # The engine's result cache stays on exact digests: WL keys
             # would alias WL-equivalent non-isomorphic pairs *without*
             # the certified confirmation the store's dedup gets.
-            engine = GedEngine(backend, device=device, **engine_options)
+            engine = GedEngine(backend, device=device, mesh=mesh,
+                               **engine_options)
             executor = getattr(engine._backend, "executor", None)
         self.engine = engine
         # the host-solver backend has no executor: the store's own one
         # places the stage-0 features, the signatures and stage 1
-        self.executor = executor or Executor(device)
+        if executor is None:
+            executor = ShardedExecutor(mesh, device) if mesh is not None \
+                else Executor(device)
+        self.executor = executor
         self._filter_cfg = None
         if self.filter_iters:
             self._filter_cfg = dataclasses.replace(
@@ -361,7 +368,7 @@ class GraphStore:
             self.compact()
 
     @classmethod
-    def open(cls, store_dir, *, device: DeviceLike = None,
+    def open(cls, store_dir, *, device: DeviceLike = None, mesh=None,
              engine: Optional[GedEngine] = None, backend: str = "auto",
              graphs=None, **engine_options):
         """Reopen a persisted store without re-ingesting.
@@ -377,15 +384,14 @@ class GraphStore:
         supplies the original corpus, in which case the store warns,
         re-ingests it (with this call's store defaults) and re-saves.
 
-        ``device`` / ``engine`` / ``backend`` and engine keyword options
-        mean the same as in the constructor; store-level knobs
+        ``device`` / ``mesh`` / ``engine`` / ``backend`` and engine
+        keyword options mean the same as in the constructor; store-level knobs
         (``digest``, ``filter_iters``, ``filter_pool``, index
         configuration) come from the snapshot itself.  The directory may
         have been written by either package.
         """
         from repro_torch.store_io import graphstore_io
         from repro_torch.store_io.atomic import StoreIOError
-        _refuse_unported(engine_options)
         store_dir = str(store_dir)
         t_open = time.perf_counter()
         try:
@@ -400,7 +406,7 @@ class GraphStore:
                 f"persisted store at {store_dir!r} is unreadable ({err}); "
                 f"re-ingesting the supplied graphs and re-saving",
                 RuntimeWarning, stacklevel=2)
-            store = cls(graphs, device=device, engine=engine,
+            store = cls(graphs, device=device, mesh=mesh, engine=engine,
                         backend=backend, **engine_options)
             store.save(store_dir)
             store._counts["open_wall_s"] += time.perf_counter() - t_open
@@ -422,7 +428,7 @@ class GraphStore:
             self.graphs[gid] = g
         self._tombstones = {gid for gid, d
                             in zip(primary["ids"], primary["dead"]) if d}
-        self._init_engine(backend, device, engine, engine_options)
+        self._init_engine(backend, device, mesh, engine, engine_options)
         self._init_counts()
         vocab = (tuple(int(v) for v in payload["vocab"][0]),
                  tuple(int(v) for v in payload["vocab"][1]))

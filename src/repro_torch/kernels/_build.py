@@ -19,6 +19,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -49,6 +50,7 @@ _SIGNATURES: Dict[str, tuple] = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+_LIB_LOCK = threading.Lock()
 # where build() looks for and writes the library, and how often it found
 # the library there ("hits") or ran nvcc ("misses"); process-global like
 # the loaded library
@@ -129,17 +131,20 @@ def build(verbose: bool = False) -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
+    """The loaded kernel library, built on first use.  The shards of a
+    sharded dispatch launch from several threads; the lock makes the first
+    of them build and load once while the others wait."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _LIB = lib
     return _LIB
 
 

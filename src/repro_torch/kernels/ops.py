@@ -6,11 +6,14 @@ tensors it calls the plain PyTorch twin in :mod:`repro_torch.kernels.ref`;
 for CUDA tensors it launches the hand-written kernel on PyTorch's current
 stream, or raises — there is no fallback from a failed kernel to its twin.
 ``LAUNCHES`` counts kernel launches (never twin calls), so a run can show
-that its main path went through the kernels.
+that its main path went through the kernels.  The shards of a
+multi-device batch launch from worker threads, so the counts change under
+a lock.
 """
 
 from __future__ import annotations
 
+import threading
 from typing import Dict
 
 import torch
@@ -19,15 +22,24 @@ from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"reduced_top2": 0, "bma_cost_matrix": 0,
                             "lsa_children": 0, "merge_ranks": 0}
+_LAUNCHES_LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(LAUNCHES)
+
+
+def _count(kernel: str) -> None:
+    """One launch of ``kernel``, counted under the lock."""
+    with _LAUNCHES_LOCK:
+        LAUNCHES[kernel] += 1
 
 
 def _on_card(*xs: torch.Tensor) -> bool:
@@ -65,7 +77,7 @@ def _launch(kernel: str, fn_name: str, device: torch.device, *args) -> None:
     lib = _build.library()
     stream = torch.cuda.current_stream(device).cuda_stream
     _build.check(getattr(lib, fn_name)(*args, device.index, stream), kernel)
-    LAUNCHES[kernel] += 1
+    _count(kernel)
 
 
 def reduced_top2(cost: torch.Tensor, prices: torch.Tensor):

@@ -606,3 +606,112 @@ def test_store_on_the_card_launches_every_kernel_and_equals_cpu(card):
     for q in queries[:2]:
         assert rows(on_card.top_k(q, 4)) == rows(on_cpu.top_k(q, 4))
         assert np.array_equal(on_card._index.scan(q), on_cpu._index.scan(q))
+
+
+# ------------------------------------------------ multi-device placement
+
+def _mesh(card, shards=2):
+    """``shards`` entries per visible card: two shards on the one card of
+    a one-card machine, a real split where there are more."""
+    return [f"cuda:{i}" for i in range(torch.cuda.device_count())] * shards
+
+
+@pytest.mark.parametrize("verification", [False, True])
+def test_sharded_and_auto_mesh_on_the_card_equal_cpu(card, verification):
+    """``"sharded"`` and ``"auto"`` on a card mesh, every family fused:
+    batches pad to the mesh, all four kernels launch, and the outcomes
+    equal the single-device CPU run's.  ``"sharded"`` on one card takes
+    the fast path."""
+    rng = np.random.default_rng(13)
+    pairs = _pairs(rng, 11, 4, 14)
+    fused = ged.KernelDispatch(lsa_fused=True, bma_fused=True,
+                               merge_fused=True)
+    mesh = _mesh(card)
+
+    def run(backend, **kw):
+        eng = ged.GedEngine(backend, cache=False, dispatch=fused, **kw)
+        if backend == "auto":
+            eng._backend.scheduler.rungs = ((16, 2, 8), (64, 4, 32))
+        outs = eng.verify(pairs, 2.0) if verification \
+            else eng.compute(pairs)
+        return outs, eng
+
+    for backend, single in (("auto", "auto"), ("sharded", "torch")):
+        want, _ = run(single, device="cpu")
+        kops.reset_launch_counts()
+        got, eng = run(backend, mesh=mesh)
+        torch.cuda.synchronize()
+        assert eng.batch_multiple == len(mesh)
+        assert all(v > 0 for v in kops.launch_counts().values())
+        assert eng.stats["executor_single_device_fastpath"] == 0
+        for a, b in zip(got, want):
+            assert (a.ged, a.similar, a.certified, a.lower_bound,
+                    a.upper_bound, a.stats) == \
+                (b.ged, b.similar, b.certified, b.lower_bound,
+                 b.upper_bound, b.stats)
+    one = ged.GedEngine("sharded", device="cuda:0", cache=False)
+    one.compute(pairs[:2])
+    assert one.batch_multiple == 1
+    assert one.stats["executor_single_device_fastpath"] == \
+        one.stats["executor_calls"] > 0
+
+
+def test_a_launch_under_a_device_context_reaches_that_device(card):
+    """Each card's shard launches on that card, on its current stream."""
+    for i in range(torch.cuda.device_count()):
+        d = torch.device("cuda", i)
+        with torch.cuda.device(d):
+            cost = torch.rand(64, 32, 32, device=d)
+            prices = torch.rand(64, 32, device=d)
+            kops.reset_launch_counts()
+            got = kops.reduced_top2(cost, prices)
+            torch.cuda.current_stream(d).synchronize()
+        assert kops.launch_counts()["reduced_top2"] == 1
+        assert all(t.device == d for t in got)
+        want = ref.reduced_top2_ref(cost.cpu(), prices.cpu())
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_store_on_a_card_mesh_equals_cpu(card):
+    """``GraphStore(mesh=...)`` on the card: feature buckets split per
+    shard, signatures byte-equal, hits equal to the CPU store's."""
+    corpus = _store_corpus(41, 90, 3)
+    opts = dict(cache=False, pool=256, expand=4, max_iters=256,
+                batch_size=8)
+    mesh = _mesh(card)
+    on_mesh = ged.GraphStore(corpus, mesh=mesh, **opts)
+    on_cpu = ged.GraphStore(corpus, device="cpu", **opts)
+    assert all({sh[0].shape[0] for sh in b.shards}
+               == {-(-len(b.ids) // len(mesh))}
+               for b in on_mesh._index.buckets)
+    assert on_mesh._cindex.sigs.tobytes() == on_cpu._cindex.sigs.tobytes()
+
+    def rows(hits):
+        return [(h.graph_id, h.stage, h.ged, h.similar, h.certified,
+                 h.lower_bound, h.upper_bound) for h in hits]
+
+    queries = corpus[:3]
+    assert [rows(h) for h in on_mesh.search_batch(queries, 3.0)] == \
+        [rows(h) for h in on_cpu.search_batch(queries, 3.0)]
+
+
+def test_verification_service_on_the_card_equals_cpu(card):
+    """The serving layer on the card with the kernels: answers equal the
+    CPU service's, and repeats are cache hits that launch nothing."""
+    from repro_torch.serving import GedRequest, GedVerificationService
+    rng = np.random.default_rng(17)
+    reqs = [GedRequest(q, g, tau=3.0) for q, g in _pairs(rng, 12, 4, 14)]
+    want = GedVerificationService(device="cpu", batch_size=8,
+                                  slots=16).verify(reqs)
+    svc = GedVerificationService(batch_size=8, slots=16, use_kernel=True)
+    kops.reset_launch_counts()
+    got = svc.verify(reqs)
+    torch.cuda.synchronize()
+    assert kops.launch_counts()["bma_cost_matrix"] > 0
+    for a, b in zip(got, want):
+        assert (a.similar, a.certified, a.lower_bound, a.upper_bound) == \
+            (b.similar, b.certified, b.lower_bound, b.upper_bound)
+    kops.reset_launch_counts()
+    again = svc.verify(reqs)
+    assert all(o.stats.get("cached") for o in again)
+    assert sum(kops.launch_counts().values()) == 0

@@ -1,6 +1,6 @@
 """The port's ``repro_torch.ged`` facade: import hygiene, device rules,
-backend policy (``"auto"`` the default, unported options refused, the
-ported cache options treated as the reference treats them), and outcomes
+backend policy (``"auto"`` the default, the ``"sharded"`` backend and the
+ported engine options treated as the reference treats them), and outcomes
 against the reference ``repro.ged``.
 
 Outcomes are held to the reference's ``"jax"`` backend on the same pairs:
@@ -92,7 +92,12 @@ def test_port_sources_have_no_jax_or_reference_imports():
             "src/repro_torch/store_io/atomic.py",
             "src/repro_torch/store_io/shared_cache.py",
             "src/repro_torch/ged/exec.py",
-            "src/repro_torch/kernels/autotune.py"} <= names
+            "src/repro_torch/kernels/autotune.py",
+            "src/repro_torch/parallel/sharding.py",
+            "src/repro_torch/serving/__init__.py",
+            "src/repro_torch/serving/ged_service.py",
+            "src/repro_torch/launch/__init__.py",
+            "src/repro_torch/launch/serve.py"} <= names
     offenders = [f"{f.name}:{i}: {line.strip()}"
                  for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
@@ -126,8 +131,30 @@ def _graphs(pairs):
 
 @pytest.mark.parametrize("name", ["sharded"])
 def test_unported_backends_point_at_the_roadmap(name):
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        ged.GedEngine(name, device="cpu")
+    """Every backend the reference registers is ported now.  ``"sharded"``
+    on one device is the single-device fast path, as in the reference on
+    its one CPU device: ``batch_multiple`` 1, every dispatch counted in
+    ``executor_single_device_fastpath``, and outcomes equal to the
+    reference's ``"sharded"`` and to the port's ``"torch"``."""
+    assert name in ged.available_backends()
+    pairs = _workload(4, 5, 3, 7)
+    port = ged.GedEngine(name, device="cpu", slots=8, cache=False, **SMALL)
+    ref = ref_ged.GedEngine(name, slots=8, cache=False, **SMALL)
+    plain = ged.GedEngine("torch", device="cpu", slots=8, cache=False,
+                          **SMALL)
+    assert port.batch_multiple == ref.batch_multiple == 1
+    assert port.config.use_kernel is False
+    for verification in (False, True):
+        run = ((lambda e: e.verify(pairs, 2.0)) if verification
+               else (lambda e: e.compute(pairs)))
+        got, want, same = run(port), run(ref), run(plain)
+        for a, b, c in zip(got, want, same):
+            _same(a, b)
+            _same(a, c)
+            assert a.backend == b.backend == name
+    assert port.stats["executor_single_device_fastpath"] == \
+        ref.stats["executor_single_device_fastpath"] == \
+        port.stats["executor_calls"] > 0
 
 
 @pytest.mark.parametrize("name", ["auto", "exact"])
@@ -152,25 +179,18 @@ def test_auto_and_exact_backends_work_and_auto_is_the_default(name):
     "cache", "shared_cache_dir", "deadline_s", "retry", "fault_inject",
     "digest", "mesh"])
 def test_unported_options_raise_type_error(option, monkeypatch):
-    """``mesh`` is the one reference option not ported: the engine and a
-    call given it raise ``TypeError`` naming ROADMAP.md.  The others are
-    ported engine options, so given ``None`` the port does what the
-    reference does: ``cache=None``, ``shared_cache_dir=None``,
-    ``deadline_s=None``, ``retry=None`` and ``fault_inject=None`` are
-    accepted and answer like the reference, ``digest=None`` raises
-    ``ValueError`` in both packages.  Per call, ``deadline_s=None`` is a
-    keyword of ``compute`` in both packages and answers like the
-    reference; the rest are engine options, not ``EngineConfig`` fields,
-    so both raise ``TypeError`` for unknown engine options."""
+    """Every engine option of the reference is ported (``mesh`` was the
+    last), so given ``None`` the port does what the reference does:
+    ``cache=None``, ``shared_cache_dir=None``, ``deadline_s=None``,
+    ``retry=None``, ``fault_inject=None`` and ``mesh=None`` are accepted
+    and answer like the reference, ``digest=None`` raises ``ValueError``
+    in both packages.  Per call, ``deadline_s=None`` is a keyword of
+    ``compute`` in both packages and answers like the reference; the rest
+    are engine options, not ``EngineConfig`` fields, so both raise
+    ``TypeError`` for unknown engine options."""
     monkeypatch.delenv(SHARED_CACHE_ENV, raising=False)
     pairs = _workload(1, 1, 3, 4)
     eng = ged.GedEngine("torch", device="cpu", **SMALL)
-    if option == "mesh":
-        with pytest.raises(TypeError, match="ROADMAP.md"):
-            ged.GedEngine(device="cpu", **{option: None})
-        with pytest.raises(TypeError, match="ROADMAP.md"):
-            eng.compute(pairs, **{option: None})
-        return
     if option == "deadline_s":
         ref = ref_ged.GedEngine("jax", slots=8, cache=False, **SMALL)
         port = ged.GedEngine("torch", device="cpu", slots=8, cache=False,
@@ -205,7 +225,8 @@ def test_unported_options_raise_type_error(option, monkeypatch):
 
 
 def test_backend_registry_and_unknown_names():
-    assert ged.available_backends() == ("auto", "cuda", "exact", "torch")
+    assert ged.available_backends() == ("auto", "cuda", "exact", "sharded",
+                                        "torch")
     with pytest.raises(ValueError, match="unknown backend"):
         ged.GedEngine("pallas", device="cpu")
     with pytest.raises(TypeError, match="unknown GedEngine options"):

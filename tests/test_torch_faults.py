@@ -52,8 +52,8 @@ REF_BACKEND = {"torch": "jax", "cuda": "pallas", "auto": "auto",
                "exact": "exact"}
 FAULT_KEYS = ("retries", "degraded_host", "degraded_kernel",
               "fault_dispatch", "fault_host", "timed_out_pairs")
-# names repro.ged exports that belong to slices still to port
-NOT_PORTED = {"ShardedExecutor"}
+# names repro.ged exports that belong to slices still to port (none left)
+NOT_PORTED = set()
 # names the port exports that repro.ged does not
 PORT_ONLY = {"AutoBackend", "ExactBackend", "Plan", "engine_outcome",
              "KernelDispatch"}
@@ -153,8 +153,11 @@ def _assert_sound(outs, truths, taus=None):
 # ------------------------------------------------------------- exports
 
 def test_exports_are_the_references_minus_the_slices_still_to_port():
-    assert len(ged.__all__) == 32
+    """Every name of ``repro.ged.__all__`` is ported (``ShardedExecutor``
+    was the last), plus the port's own five: 33 names."""
+    assert len(ged.__all__) == 33 and not NOT_PORTED
     assert set(ged.__all__) - PORT_ONLY == set(ref_ged.__all__) - NOT_PORTED
+    assert ged.ShardedExecutor.name == ref_ged.ShardedExecutor.name
     for name in ("Deadline", "FaultInjector", "InjectedFault", "Overloaded",
                  "RetryPolicy"):
         assert getattr(ged, name) is getattr(faults, name)

@@ -78,6 +78,14 @@ def _outcome_row(o):
             o.backend, o.tau, o.stats, mapping)
 
 
+def _equal_slices(bucket, shards):
+    """A feature bucket lies on ``shards`` devices as slices of one
+    length, ceil(rows / shards): the resident rows pad to the mesh."""
+    return len(bucket.shards) == shards and {
+        sh[0].shape[0] for sh in bucket.shards} == {-(-len(bucket.ids)
+                                                      // shards)}
+
+
 def _hit_rows(hits):
     return [(h.graph_id, h.stage, h.query_id) + _outcome_row(h.outcome)
             for h in hits]
@@ -284,14 +292,36 @@ def test_plan_vocab_and_result_schema_equal_reference():
 # ---------------------------------------------------- options and devices
 
 def test_mesh_raises_type_error_and_engine_options_are_exclusive(tmp_path):
+    """``mesh=`` is ported: a store and a warm open on a two-shard CPU
+    mesh split every feature bucket into two resident slices of equal
+    length and answer like the reference's store (hits field by field,
+    counters exactly); a mesh beside ``engine=`` raises ``TypeError`` as
+    in the reference, and a mesh that is not a flat device sequence
+    raises (``TypeError`` for a non-sequence, ``ValueError`` for a nested
+    one)."""
     corpus = _corpus(50, 4)
-    with pytest.raises(TypeError, match="not ported yet"):
+    mesh = ["cpu"] * 2
+    with pytest.raises(TypeError):
         ged.GraphStore(corpus, mesh=object(), device="cpu")
-    store = ged.GraphStore(corpus, device="cpu", backend="exact")
-    store.save(str(tmp_path / "db"))
-    with pytest.raises(TypeError, match="not ported yet"):
-        ged.GraphStore.open(str(tmp_path / "db"), mesh=object(),
-                            device="cpu")
+    with pytest.raises(ValueError, match="flat sequence"):
+        ged.GraphStore(corpus, mesh=[mesh], device="cpu")
+    port = ged.GraphStore(corpus, mesh=mesh, **STORE_OPTS)
+    ref = ref_ged.GraphStore(corpus, **STORE_OPTS)
+    assert port.executor.batch_multiple == 2
+    assert all(_equal_slices(b, 2) for b in port._index.buckets)
+    queries = [corpus[0], corpus[2]]
+    want = [_hit_rows(h) for h in ref.search_batch(queries, 2.0)]
+    assert [_hit_rows(h) for h in port.search_batch(queries, 2.0)] == want
+    assert _counters(port.stats) == _counters(ref.stats)
+    port.save(str(tmp_path / "db"))
+    warm = ged.GraphStore.open(str(tmp_path / "db"), mesh=mesh,
+                               **STORE_OPTS)
+    assert warm.stats["filter_packed_rows"] == 0
+    assert all(_equal_slices(b, 2) for b in warm._index.buckets)
+    assert [_hit_rows(h) for h in warm.search_batch(queries, 2.0)] == want
+    with pytest.raises(TypeError, match="exclusive"):
+        ged.GraphStore(corpus, mesh=mesh,
+                       engine=ged.GedEngine("torch", device="cpu"))
     eng = ged.GedEngine("torch", device="cpu")
     for bad in (dict(pool=8), dict(backend="exact"), dict(device="cpu")):
         with pytest.raises(TypeError, match="exclusive"):
