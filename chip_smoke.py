@@ -6,6 +6,7 @@ toolkit (``nvcc``):
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --lm-only       # the [lm] phase only
 
 The environment variables ``REPRO_GED_SHARED_CACHE_DIR``,
 ``REPRO_GED_COMPILE_CACHE_DIR`` and ``REPRO_GED_FAULT_INJECT`` are cleared
@@ -131,7 +132,26 @@ nothing falls back to the CPU):
     "cuda:0"])`` on the sub-store (buckets and batches multiples of 2,
     signatures byte-equal, hits equal the single-device store's), each
     wall beside the single-device one;
-13. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
+13. ``[lm]``, the LM serving path (no TPU kernel lies on it: the
+    reference's ``models/flash.py`` is pure JAX): qwen3-8b at full width
+    and depth (36 layers, d 4096, about 8.19 B parameters, 32.8 GB in f32)
+    from ``init_params(device="cuda")``; ``generate`` on 4 prompts of 32
+    tokens for 16 new ones in bf16 compute, then its loop again with each
+    span ended by a synchronize (prefill ms, decode ms per token, tokens/s;
+    the tokens equal ``generate``'s), launches and device-busy share per
+    decode step from ``torch.profiler``, and at f32 compute on the same
+    weights the prefill and decode logits against the full forward's
+    (``tests/test_archs.py``'s tolerance; every cache row against the
+    forward's K/V, and the decode step against the forward whose last
+    position attends to the cache rows the step read);
+    one full-width layer's prefill
+    at S = 2048 with ``impl="flash"`` against ``"naive"`` (f32 and bf16);
+    gemma3-1b at full size on a 600-token prompt, which wraps its 512-slot
+    rings (the same consistency check, and ``generate``); and reduced
+    nemotron-4-15b, qwen2-72b, qwen2-vl-2b and a ``kv_quant`` qwen3-8b on
+    the card against the port on the CPU with the same weights at f32
+    (logits and caches, ``generate``'s tokens equal);
+14. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
     ``"auto"`` run, the fused store's, the services' and the mesh
     ``"auto"`` run's), the card's name and power limit, and as the last
     line ``{"ok": true, "device": {...}}``.
@@ -1797,6 +1817,344 @@ def sharded_phase(pairs, vocab, comp_t, ver_t, auto_pairs, auto_vocab,
     log("[sharded] summary: " + json.dumps(summ) + f" ({smi})")
     return summ, launches
 
+# ------------------------------------------------------------------- LM
+
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 32, 16   # the qwen3-8b generate cell
+LM_TOL = dict(atol=2e-3, rtol=2e-2)       # tests/test_archs.py's oracle
+GEMMA_PROMPT = 600                        # wraps gemma3's 512-slot rings
+LONG_PREFILL = 2048                       # one layer, impl flash vs naive
+
+
+def max_diff(got, want, tol, tag=""):
+    """Largest |got - want|; raises past ``atol + rtol * |want|``.  A bf16
+    tensor (a KV cache) may also be one bf16 step (2**-7 of the value)
+    away: an f32-level difference upstream can flip its one rounding."""
+    import torch
+    if want.dtype == torch.bfloat16:
+        tol = dict(tol, rtol=max(tol["rtol"], 2.0 ** -7))
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    bad = diff > tol["atol"] + tol["rtol"] * want.abs()
+    if bool(bad.any()):
+        raise AssertionError(f"{tag}: {int(bad.sum())} of {bad.numel()} "
+                             f"values differ; max |diff| {float(diff.max())}")
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def consistency(params, cfg, prompt, patches=None):
+    """``tests/test_archs.py``'s oracle at full size: the prompt's last
+    token decoded against the caches of a prefill over the others, held
+    to the full forward over the whole prompt.
+
+    The caches hold K/V in bf16 (in the reference too).  At full width
+    that rounding alone moves the decode logits past ``test_archs``'s
+    tolerance from the plain forward's (returned, unchecked), and any
+    f32-level difference between two paths can flip single roundings.
+    So the check is in
+    two parts, both within ``test_archs``'s tolerance: every cache row
+    equals the full forward's roped K/V at its position (a ring slot
+    ``p % T`` holding position ``p``); and the decode logits equal the
+    full forward's whose last position attends to the very K/V rows the
+    decode step read.  The prefill logits are held to the plain
+    forward's.
+    """
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.lm_decode import _grow_caches
+    b, s = prompt.shape[0], prompt.shape[1] - 1
+    stream = s + (0 if patches is None else patches.shape[1])
+    windows = cfg.windows()
+    mixed = any(w > 0 for w in windows)
+    plain = T.reference_attention
+
+    def layer_cache(i):
+        if not mixed:
+            return caches["k"][i], caches["v"][i]
+        kind = "local" if windows[i] > 0 else "global"
+        j = sum(1 for w in windows[:i] if (w > 0) == (windows[i] > 0))
+        return caches[kind + "_k"][j], caches[kind + "_v"][j]
+
+    seen = []
+
+    def last_row_on_cache(q, k, v, causal=True, window=0,
+                          kv_valid=10 ** 9, q_offset=0):
+        seen.append((k, v))
+        out = plain(q, k, v, causal, window, kv_valid, q_offset)
+        ck, cv = layer_cache(len(seen) - 1)
+        rows = min(stream + 1, ck.shape[1])     # valid slots after decode
+        out[:, -1:] = plain(q[:, -1:], ck[:, :rows], cv[:, :rows], False)
+        return out
+
+    def full_logits():
+        h = T.forward_hidden(params, prompt, cfg, patches=patches,
+                             impl="naive")
+        return L.lm_logits(L.norm(h[:, -2:], params["final_norm"], cfg),
+                           params, cfg)
+
+    with torch.no_grad():
+        logits_p, caches = T.prefill_step(params, prompt[:, :s], cfg,
+                                          patches=patches, impl="naive")
+        caches = _grow_caches(caches, cfg, b, stream, stream + 4)
+        logits_d, caches = T.decode_step(params, caches, prompt[:, s:],
+                                         stream, cfg)
+        full = full_logits()
+        T.reference_attention = last_row_on_cache
+        try:
+            on_cache = full_logits()
+        finally:
+            T.reference_attention = plain
+    cache_diff = 0.0
+    for i, (k, v) in enumerate(seen):
+        ck, cv = layer_cache(i)
+        t = ck.shape[1]
+        pos = torch.arange(max(0, stream + 1 - t), stream + 1,
+                           device=k.device)
+        for got, want in ((ck, k), (cv, v)):
+            cache_diff = max(cache_diff, max_diff(
+                got[:, pos % t], want[:, pos].to(torch.bfloat16), LM_TOL,
+                f"layer {i} cache"))
+    torch.cuda.synchronize()
+    return {"prefill": max_diff(logits_p, full[:, 0], LM_TOL, "prefill"),
+            "caches_vs_forward_kv": cache_diff,
+            "decode_vs_forward_on_cached_kv": max_diff(
+                logits_d, on_cache[:, 1], LM_TOL, "decode"),
+            "decode_vs_forward_unchecked": float(
+                (logits_d - full[:, 1]).abs().max())}
+
+
+def profile_decode(params, cfg, prompt, steps: int = 3):
+    """CUDA launches, device time and device-busy share per decode step,
+    from ``torch.profiler`` over ``steps`` steps after a fresh prefill."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.lm_decode import _grow_caches, greedy_sample
+    b, s = prompt.shape
+    with torch.no_grad():
+        logits, caches = T.prefill_step(params, prompt, cfg, impl="naive")
+        caches = _grow_caches(caches, cfg, b, s, s + steps + 1)
+        token = greedy_sample(logits, cfg.vocab)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for pos in range(s, s + steps):
+                logits, caches = T.decode_step(params, caches, token, pos,
+                                               cfg)
+                token = greedy_sample(logits, cfg.vocab)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"launches_per_step": "not measured",
+                "device_busy_share": "not measured"}
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        cnt, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (cnt + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"profiled_steps": steps,
+            "launches_per_step": len(kernels) / steps,
+            "device_ms_per_step": busy_us / 1e3 / steps,
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "device_busy_share": busy_us * 1e-6 / wall,
+            "top_kernels_by_device_time": [
+                [name[:60], cnt / steps, us / 1e3 / steps]
+                for name, (cnt, us) in top]}
+
+
+def timed_generate(params, cfg, prompt, max_new):
+    """``generate``'s own loop with each span ended by a synchronize:
+    (tokens, prefill seconds, decode seconds per step)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.lm_decode import _grow_caches, greedy_sample
+    b, s = prompt.shape
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = T.prefill_step(params, prompt, cfg, impl="naive")
+        caches = _grow_caches(caches, cfg, b, s, s + max_new)
+        token = greedy_sample(logits, cfg.vocab)
+        torch.cuda.synchronize()
+        prefill = time.perf_counter() - t0
+        toks, steps = [token], []
+        for pos in range(s, s + max_new - 1):
+            t0 = time.perf_counter()
+            logits, caches = T.decode_step(params, caches, token, pos, cfg)
+            token = greedy_sample(logits, cfg.vocab)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            toks.append(token)
+    return torch.cat(toks, 1).cpu().numpy(), prefill, steps
+
+
+def lm_phase(smi):
+    """The LM serving path on the card: qwen3-8b at full width and depth
+    (``generate`` timed, launches per decode step, f32 consistency),
+    gemma3-1b at full size on a prompt that wraps its rings, one
+    full-width layer's prefill with ``impl="flash"`` against ``"naive"``,
+    and four reduced configs on the card against the port on the CPU."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    from repro_torch.models.params import (init_params, param_count,
+                                           params_from_numpy, tree_leaves)
+    from repro_torch.serving import generate
+    t_phase = time.perf_counter()
+    summ = {}
+    rng = np.random.default_rng(SEED + 20)
+
+    # ---- qwen3-8b, full width and depth, random weights from a seed ----
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), remat="none")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    leaves = [t for _, t in tree_leaves(params)]
+    n_params = param_count(cfg)
+    assert n_params == sum(t.numel() for t in leaves)
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": n_params,
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
+           "init_s": time.perf_counter() - t0}
+    del leaves
+    prompt = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT + 1)).astype(
+        np.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, prompt[:, :LM_PROMPT], cfg, max_new=LM_NEW,
+                   impl="naive")
+    row["first_generate_s"] = time.perf_counter() - t0
+    assert out.shape == (LM_BATCH, LM_NEW), out.shape
+    assert ((out >= 0) & (out < cfg.vocab)).all()
+    runs = []
+    for _ in range(2):
+        toks, prefill, steps = timed_generate(
+            params, cfg, torch.as_tensor(prompt[:, :LM_PROMPT],
+                                         device="cuda"), LM_NEW)
+        assert np.array_equal(toks, out), "timed loop != generate"
+        runs.append({"prefill_ms": prefill * 1e3,
+                     "decode_ms_per_token_median":
+                         statistics.median(steps) * 1e3,
+                     "decode_ms_min_max": [min(steps) * 1e3,
+                                           max(steps) * 1e3],
+                     "tokens_per_s": LM_BATCH * LM_NEW
+                     / (prefill + sum(steps)),
+                     "decode_tokens_per_s": LM_BATCH
+                     / statistics.median(steps)})
+    row["bf16_generate"] = {"batch": LM_BATCH, "prompt": LM_PROMPT,
+                            "new": LM_NEW, "runs": runs}
+    row["profile"] = profile_decode(
+        params, cfg, torch.as_tensor(prompt[:, :LM_PROMPT], device="cuda"))
+    if "device_ms_per_step" in row["profile"]:
+        # the profiler slows the host; the unprofiled step's wall is
+        # the decode median of the last timed run
+        row["profile"]["device_share_of_unprofiled_step"] = (
+            row["profile"]["device_ms_per_step"]
+            / runs[-1]["decode_ms_per_token_median"])
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    row["f32_consistency_max_diff"] = consistency(
+        params, cfg32, torch.as_tensor(prompt, device="cuda"))
+    row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    summ["qwen3_8b"] = row
+    log("[lm] qwen3-8b: " + json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- one full-width layer's prefill at S = 2048, flash vs naive ----
+    one = dataclasses.replace(cfg, n_layers=1)
+    params = init_params(one, seed=SEED + 1, device="cuda")
+    long = torch.as_tensor(rng.integers(0, cfg.vocab, (1, LONG_PREFILL)),
+                           dtype=torch.int32, device="cuda")
+    row = {}
+    # f32: the blocked and the naive softmax sum in other orders; logits
+    # of scale ~1.3 over d = 4096 carry f32 noise of about 2e-5
+    for dtype, tol in (("float32", dict(atol=1e-4, rtol=1e-4)),
+                       ("bfloat16", dict(atol=3e-2, rtol=3e-2))):
+        c = dataclasses.replace(one, compute_dtype=dtype)
+        res = {}
+        for impl in ("naive", "flash"):
+            with torch.no_grad():
+                T.prefill_step(params, long, c, impl=impl)      # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res[impl] = T.prefill_step(params, long, c, impl=impl)
+                torch.cuda.synchronize()
+                res[impl + "_ms"] = (time.perf_counter() - t0) * 1e3
+        (ln, cn), (lf, cf) = res["naive"], res["flash"]
+        row[dtype] = {"naive_ms": res["naive_ms"],
+                      "flash_ms": res["flash_ms"],
+                      "logits_max_diff": max_diff(lf, ln, tol, dtype),
+                      "cache_max_diff": max(max_diff(cf[k], cn[k], tol, k)
+                                            for k in cn)}
+    summ["flash_layer_s2048"] = row
+    log("[lm] qwen3-8b one layer, S=2048, flash vs naive: "
+        + json.dumps(row))
+    del params, res, ln, cn, lf, cf
+    torch.cuda.empty_cache()
+
+    # ---- gemma3-1b, full size, a prompt that wraps the 512-slot rings --
+    cfg = dataclasses.replace(get_arch("gemma3-1b"), remat="none")
+    params = init_params(cfg, seed=SEED + 2, device="cuda")
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (2, GEMMA_PROMPT + 1)),
+                             dtype=torch.int32, device="cuda")
+    row = {"arch": cfg.name, "layers": cfg.n_layers,
+           "params": param_count(cfg), "prompt": GEMMA_PROMPT}
+    row["f32_consistency_max_diff"] = consistency(
+        params, dataclasses.replace(cfg, compute_dtype="float32"), prompt)
+    t0 = time.perf_counter()
+    out = generate(params, prompt[:, :GEMMA_PROMPT], cfg, max_new=8,
+                   impl="naive")
+    row["bf16_generate_s"] = time.perf_counter() - t0
+    assert out.shape == (2, 8) and ((out >= 0) & (out < cfg.vocab)).all()
+    summ["gemma3_1b"] = row
+    log("[lm] gemma3-1b: " + json.dumps(row))
+    del params
+    torch.cuda.empty_cache()
+
+    # ---- reduced configs: the card against the port on the CPU --------
+    tol = dict(atol=1e-5, rtol=1e-4)
+    cards = {}
+    for name, over in (("nemotron-4-15b", {}), ("qwen2-72b", {}),
+                       ("qwen2-vl-2b", {}), ("qwen3-8b", {"kv_quant": True})):
+        c = dataclasses.replace(reduced(get_arch(name)), remat="none",
+                                compute_dtype="float32", **over)
+        cpu = init_params(c, seed=SEED, device="cpu")
+        card = params_from_numpy(cpu, device="cuda")
+        toks = rng.integers(0, c.vocab, (2, 13)).astype(np.int32)
+        patches = None
+        if c.vlm is not None:
+            patches = (rng.normal(size=(2, c.vlm.num_patches, c.d_model))
+                       * 0.02).astype(np.float32)
+        got = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            with torch.no_grad():
+                lp, caches = T.prefill_step(p, toks[:, :12], c,
+                                            patches=patches, impl="naive")
+            got[dev] = (lp, caches, generate(p, toks[:, :12], c, max_new=4,
+                                             patches=patches, impl="naive",
+                                             device=dev))
+        (lg, cg, og), (lc, cc, oc) = got["cuda"], got["cpu"]
+        d = {"logits": max_diff(lg.cpu(), lc, tol, name),
+             "caches": max(max_diff(cg[k].cpu(), cc[k], tol, f"{name} {k}")
+                           for k in cc)}
+        assert np.array_equal(og, oc), (name, og, oc)
+        cards[name + (" kv_quant" if over else "")] = d
+    summ["reduced_card_vs_cpu_max_diff"] = cards
+    log("[lm] reduced configs, card vs CPU: " + json.dumps(cards)
+        + "; generate tokens equal")
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[lm] summary: " + json.dumps(summ) + f" ({smi})")
+    return summ
+
+
 
 # ----------------------------------------------------------------- main
 
@@ -1826,6 +2184,13 @@ def main(argv) -> int:
     log(f"[device] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     dev = resolve_device("cuda")
+    if "--lm-only" in argv:           # iterate on the LM phase alone
+        lm_phase(smi)
+        log(f"[device] {smi}")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     t0 = time.perf_counter()
     _build.build(verbose=True)
@@ -1951,6 +2316,9 @@ def main(argv) -> int:
         pairs, vocab, comp_t, ver_t, pairs + big, label_vocab(pairs + big),
         auto_comp, auto_ver, auto_summ["all_fused_s"], sub_store, smi)
 
+    # ---- the LM serving path: qwen3-8b and gemma3-1b at full size ------
+    lm_summ = lm_phase(smi)
+
     phase_launches = {"auto": launches, "store": store_launches,
                       "serving": serving_launches,
                       "sharded": sharded_launches}
@@ -1962,7 +2330,7 @@ def main(argv) -> int:
     log(json.dumps({"main_path": summ, "auto_path": auto_summ,
                     "cache_path": cache_summ, "faults_path": faults_summ,
                     "store_path": store_summ, "serving_path": serving_summ,
-                    "sharded_path": sharded_summ,
+                    "sharded_path": sharded_summ, "lm_path": lm_summ,
                     "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))

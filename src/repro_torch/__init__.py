@@ -13,9 +13,11 @@ as copies.
 
 Entry points take ``device=`` and default to the card; without a visible
 GPU they raise and ask for ``device="cpu"`` instead of quietly running on
-the CPU.  ``serving`` holds the GED services and ``launch`` their entry
-point (``python -m repro_torch.launch.serve --mode ged``).
+the CPU.  ``serving`` holds the GED services and LM decoding
+(``generate``), ``launch`` their entry point (``python -m
+repro_torch.launch.serve --mode ged|lm``); ``configs`` and ``models`` the
+LM architectures and the dense stack they run on.
 """
 
-__all__ = ["core", "data", "ged", "kernels", "launch", "parallel",
-           "runtime", "serving", "store_io"]
+__all__ = ["configs", "core", "data", "ged", "kernels", "launch", "models",
+           "parallel", "runtime", "serving", "store_io"]

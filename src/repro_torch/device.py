@@ -19,6 +19,9 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
 
     Resolving a CUDA device also switches TF32 off for matmuls and
     convolutions: the engine's histogram contractions must stay exact f32.
+    It also switches off cuBLAS's reduced-precision reductions in bf16
+    matmuls, so the LM layers accumulate in f32 as the reference's
+    ``preferred_element_type=f32`` contractions do.
 
     >>> resolve_device("cpu")
     device(type='cpu')
@@ -31,6 +34,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
                 "port on the CPU")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev!s}; use 'cuda' or 'cpu'")
     return dev

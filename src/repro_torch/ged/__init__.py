@@ -5,8 +5,9 @@ The same facade as ``repro.ged`` (:class:`GedEngine` / :func:`compute` /
 backends: ``"auto"`` (the default: escalating engine rungs, then the host
 solver; always certified), ``"exact"`` (the host solver), ``"cuda"``
 (hand-written kernels), ``"torch"`` (plain PyTorch) and ``"sharded"``
-(the plain engine with every batch split over the devices of a flat
-``mesh``, :class:`ShardedExecutor`; ``"auto"`` takes ``mesh=`` too).
+(the plain engine with every batch split over the devices of ``mesh``,
+flat or a named ``DeviceMesh``, :class:`ShardedExecutor`; ``"auto"``
+takes ``mesh=`` too).
 Entry points run on the card unless given ``device="cpu"``.  In front of every backend sits
 the result cache (:class:`ResultCache`, keyed on :func:`graph_digest` or
 :func:`wl_digest` pair digests, with an optional cross-process tier on

@@ -75,13 +75,16 @@ class GedEngine:
     device : ``"cuda"`` (default) or ``"cpu"``.  The default needs a
         visible GPU and raises without one.
     mesh : devices for the ``"sharded"`` and ``"auto"`` backends, a flat
-        sequence such as ``["cuda:0", "cuda:1"]`` or ``["cpu"] * 4``
+        sequence such as ``["cuda:0", "cuda:1"]`` or ``["cpu"] * 4``, or
+        a named :class:`~repro_torch.parallel.sharding.DeviceMesh`
         (:func:`repro_torch.parallel.sharding.pair_devices`): each batch
-        is padded to a multiple of its length and split into one
-        contiguous shard per entry.  ``"sharded"`` defaults to every
-        visible card; ``"auto"`` runs on one device unless a mesh is
-        given.  A nested or mixed mesh, or a ``device`` that disagrees
-        with it, raises ``ValueError``.  The other backends ignore it, as
+        is padded to a multiple of its shard count (the flat mesh's
+        length, or the size of the named mesh's pairs axes) and split
+        into one contiguous shard per entry or pairs index.
+        ``"sharded"`` defaults to every visible card; ``"auto"`` runs on
+        one device unless a mesh is given.  A bare nested or a mixed
+        mesh, or a ``device`` that disagrees with it, raises
+        ``ValueError``.  The other backends ignore it, as
         in the reference.
     slots : pin every batch to this slot count instead of per-pair
         power-of-two bucketing.

@@ -271,10 +271,10 @@ class CudaBackend(EngineBackend):
 
 class ShardedBackend(EngineBackend):
     """The ``"torch"`` policy on a :class:`ShardedExecutor`: each batch is
-    split over the devices of a flat ``mesh`` (default: every visible
-    card, or the one device ``device`` names).  Only the placement
-    differs, so outcomes equal ``"torch"``'s.  ``dispatch=`` puts the
-    kernels on its path.
+    split over the devices of ``mesh``, flat or a named ``DeviceMesh``
+    (default: every visible card, or the one device ``device`` names).
+    Only the placement differs, so outcomes equal ``"torch"``'s.
+    ``dispatch=`` puts the kernels on its path.
 
     >>> ShardedBackend(mesh=["cpu"] * 2).batch_multiple
     2
@@ -284,7 +284,7 @@ class ShardedBackend(EngineBackend):
     kernel_default = False
 
     def __init__(self, mesh=None, device=None) -> None:
-        super().__init__(executor=ShardedExecutor(mesh, device))
+        super().__init__(executor=ShardedExecutor(mesh, device=device))
 
 
 # ------------------------------------------------------------ escalation
@@ -350,8 +350,8 @@ class AutoBackend:
                  executor: Optional[Executor] = None, mesh=None,
                  overlap: bool = True, max_in_flight: int = 4):
         if executor is None:
-            executor = ShardedExecutor(mesh, device) if mesh is not None \
-                else Executor(device)
+            executor = (ShardedExecutor(mesh, device=device)
+                        if mesh is not None else Executor(device))
         self.scheduler = GedScheduler(batch_size)
         self.executor = executor
         self.overlap = bool(overlap)

@@ -7,8 +7,9 @@ Backends (:mod:`repro_torch.ged.backends`) are policies; everything about
   with its batch-shape policy, the ``use_kernel="auto"`` dispatch
   resolution, the move onto the device and invocation counters.
 * :class:`ShardedExecutor` — the same over several devices (a flat
-  ``mesh``, :func:`repro_torch.parallel.sharding.pair_devices`): each
-  batch is split into one contiguous shard per mesh entry.
+  ``mesh`` or a named ``DeviceMesh``,
+  :func:`repro_torch.parallel.sharding.pair_devices`): each batch is
+  split into one contiguous shard per pair shard of the mesh.
 * :class:`PendingBatch` — the future :meth:`Executor.run_packed_async`
   returns; :meth:`PendingBatch.ready` polls without blocking and
   :meth:`PendingBatch.result` hands back numpy, shards in batch order.
@@ -60,7 +61,8 @@ from repro_torch.ged import faults
 from repro_torch.ged.plan import Bucket, Vocab, pack_bucket
 from repro_torch.ged.results import GedOutcome, engine_mapping
 from repro_torch.kernels import _build, autotune
-from repro_torch.parallel.sharding import Mesh, pair_devices
+from repro_torch.parallel.sharding import (DeviceMesh, Mesh, pair_devices,
+                                          pairs_axes)
 
 
 # ------------------------------------------------- persistent compile cache
@@ -324,14 +326,20 @@ def _on(device: torch.device):
 
 
 class ShardedExecutor(Executor):
-    """Split each pair batch over the devices of a flat ``mesh``.
+    """Split each pair batch over the devices of ``mesh``.
 
-    ``mesh`` is a sequence of torch devices
+    ``mesh`` is a flat sequence of torch devices or a named
+    :class:`~repro_torch.parallel.sharding.DeviceMesh`
     (:func:`repro_torch.parallel.sharding.pair_devices`); ``None`` means
-    every visible card, or the one device ``device`` names.  A batch
-    (padded by :func:`repro_torch.ged.plan.pack_bucket` to
-    ``batch_multiple``, the mesh's length) is cut into contiguous, equal
-    shards, shard ``i`` running :func:`dispatch_packed` on ``mesh[i]``
+    every visible card, or the one device ``device`` names.  A named mesh
+    shards pairs over ``axes`` (default
+    :func:`~repro_torch.parallel.sharding.pairs_axes`: ``pod`` x ``data``,
+    else its first axis) and replicates them over the rest, as the
+    reference's ``shard_map`` does; replicas compute the same rows, so
+    each shard runs once, on the first device of its replica group.  A
+    batch (padded by :func:`repro_torch.ged.plan.pack_bucket` to
+    ``batch_multiple``, the shard count) is cut into contiguous, equal
+    shards, shard ``i`` running :func:`dispatch_packed` on its device
     with that device current.  One worker thread per distinct device runs
     its shards in order (one distinct device: the caller's thread), and
     the dispatch joins them before it returns, so a shard's failure is
@@ -348,12 +356,21 @@ class ShardedExecutor(Executor):
     (4, 0)
     >>> ShardedExecutor(device="cpu").batch_multiple
     1
+    >>> from repro_torch.parallel.sharding import DeviceMesh
+    >>> ShardedExecutor(DeviceMesh([["cpu"] * 2] * 4, ("data", "model"))
+    ...                 ).batch_multiple
+    4
     """
 
     name = "sharded"
 
-    def __init__(self, mesh: Mesh = None, device: DeviceLike = None):
-        self._devices = pair_devices(mesh, device)
+    def __init__(self, mesh: Mesh = None,
+                 axes: Optional[Sequence[str]] = None,
+                 device: DeviceLike = None):
+        self._devices = pair_devices(mesh, device, axes)
+        self.mesh = mesh
+        self.axes = (tuple(axes) if axes is not None else pairs_axes(mesh)
+                     ) if isinstance(mesh, DeviceMesh) else None
         super().__init__(self._devices[0])
         self.stats["single_device_fastpath"] = 0
 

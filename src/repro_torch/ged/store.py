@@ -85,9 +85,9 @@ class GraphStore:
         default a fresh ``GedEngine("auto", device=device, mesh=mesh)``
         (certified answers).  ``device`` (default: the card) also places
         the stage-0 features, the signature build and the stage-1 pass;
-        ``mesh`` (a flat device sequence, see
+        ``mesh`` (a flat device sequence or a named ``DeviceMesh``, see
         :class:`~repro_torch.ged.exec.ShardedExecutor`) splits all of them
-        over its devices.  Pass an existing ``engine=`` to share its
+        over its pair shards.  Pass an existing ``engine=`` to share its
         executor and result cache — exclusive with ``backend``, ``mesh``
         and engine keyword options (and with ``device`` when the engine
         has its own executor), which would otherwise be silently
@@ -207,8 +207,8 @@ class GraphStore:
         # the host-solver backend has no executor: the store's own one
         # places the stage-0 features, the signatures and stage 1
         if executor is None:
-            executor = ShardedExecutor(mesh, device) if mesh is not None \
-                else Executor(device)
+            executor = (ShardedExecutor(mesh, device=device)
+                        if mesh is not None else Executor(device))
         self.executor = executor
         self._filter_cfg = None
         if self.filter_iters:

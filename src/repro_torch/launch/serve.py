@@ -1,12 +1,16 @@
-"""Serving launcher of the port: the GED verification service.
+"""Serving launcher of the port: GED verification service or LM decode.
 
 GED verification (the paper's workload; the default), on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode ged \\
       --pairs 200 --tau 9 --size 16
 
-``--device cpu`` runs it on the CPU.  ``--mode lm`` (LM decode) belongs to
-the LM substrate, which the port does not have yet (``ROADMAP.md``,
-queue 1): it exits with status 2.
+LM decode (reduced scale, random weights; the dense and vlm archs):
+  PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
+      --arch gemma3-1b --batch 4 --prompt-len 32 --max-new 16
+
+``--device cpu`` runs either on the CPU.  An ``--arch`` whose family the
+port has not ported yet (moe, ssm, hybrid, audio) exits with status 2
+and names ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -16,6 +20,8 @@ import sys
 import time
 
 import numpy as np
+
+from repro_torch.configs import get_arch, list_archs
 
 
 def serve_ged(args) -> None:
@@ -41,6 +47,33 @@ def serve_ged(args) -> None:
     print(f"service stats: {svc.stats}")
 
 
+def serve_lm(args) -> None:
+    import dataclasses
+    from repro_torch.models.config import reduced
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.serving import generate
+
+    cfg = reduced(get_arch(args.arch))
+    cfg = dataclasses.replace(cfg, remat="none")
+    print(f"arch={cfg.name} (reduced) params={param_count(cfg):,}")
+    params = init_params(cfg, seed=args.seed, device=args.device)
+    rng = np.random.default_rng(args.seed)
+    prompt = rng.integers(0, cfg.vocab,
+                          size=(args.batch, args.prompt_len)).astype(np.int32)
+    patches = None
+    if cfg.vlm is not None:
+        patches = np.zeros((args.batch, cfg.vlm.num_patches, cfg.d_model),
+                           np.float32)
+    t0 = time.time()
+    out = generate(params, prompt, cfg, max_new=args.max_new,
+                   patches=patches, impl="naive", device=args.device)
+    dt = time.time() - t0
+    toks = args.batch * args.max_new
+    print(f"generated {out.shape} in {dt:.2f}s ({toks/dt:.1f} tok/s) on "
+          f"{params['embed'].device}")
+    print("sample:", out[0][:12])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--mode", default="ged", choices=("ged", "lm"))
@@ -52,13 +85,22 @@ def main(argv=None) -> int:
     ap.add_argument("--tau", type=float, default=9.0)
     ap.add_argument("--size", type=int, default=12)
     ap.add_argument("--batch", type=int, default=64)
+    # lm
+    ap.add_argument("--arch", default="qwen3-8b", choices=list_archs())
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-new", type=int, default=16)
     args = ap.parse_args(argv)
-    if args.mode == "lm":
-        print("--mode lm: LM decode is part of the LM substrate, which the "
-              "port does not have yet (see ROADMAP.md, queue 1)",
-              file=sys.stderr)
+    if args.mode == "ged":
+        serve_ged(args)
+        return 0
+    from repro_torch.models.transformer import check_family
+    try:
+        check_family(get_arch(args.arch))
+    except NotImplementedError as exc:
+        print(f"--mode lm: {exc}", file=sys.stderr)
         return 2
-    serve_ged(args)
+    args.batch = min(args.batch, 8)
+    serve_lm(args)
     return 0
 
 

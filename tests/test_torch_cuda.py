@@ -715,3 +715,44 @@ def test_verification_service_on_the_card_equals_cpu(card):
     again = svc.verify(reqs)
     assert all(o.stats.get("cached") for o in again)
     assert sum(kops.launch_counts().values()) == 0
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "nemotron-4-15b", "qwen2-72b",
+                                  "qwen2-vl-2b", "qwen3-8b"])
+def test_lm_generate_on_the_card_equals_cpu(card, arch):
+    """The LM serving path on the card (reduced config, f32 compute, the
+    same weights as the CPU run): prefill logits within rtol 1e-4, every
+    cache within one bf16 step (2**-7 of the value), and ``generate``'s
+    tokens equal."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    from repro_torch.models.params import init_params, params_from_numpy
+    from repro_torch.serving import generate
+    base = get_arch(arch)
+    cfg = dataclasses.replace(
+        reduced(base, layers=3 if base.window_pattern else 2),
+        remat="none", compute_dtype="float32")
+    cpu = init_params(cfg, seed=0, device="cpu")
+    gpu = params_from_numpy(cpu)
+    rng = np.random.default_rng(5)
+    prompt = rng.integers(0, cfg.vocab, (2, 12)).astype(np.int32)
+    patches = None
+    if cfg.vlm is not None:
+        patches = (rng.normal(size=(2, cfg.vlm.num_patches, cfg.d_model))
+                   * 0.02).astype(np.float32)
+    with torch.no_grad():
+        lc, cc = T.prefill_step(cpu, prompt, cfg, patches=patches,
+                                impl="naive")
+        lg, cg = T.prefill_step(gpu, prompt, cfg, patches=patches,
+                                impl="naive")
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-5)
+    for key in cc:
+        torch.testing.assert_close(cg[key].cpu().float(), cc[key].float(),
+                                   rtol=2.0 ** -7, atol=1e-5)
+    want = generate(cpu, prompt, cfg, max_new=4, patches=patches,
+                    impl="naive", device="cpu")
+    got = generate(gpu, prompt, cfg, max_new=4, patches=patches,
+                   impl="naive")
+    assert np.array_equal(got, want)

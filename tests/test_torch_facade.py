@@ -97,7 +97,16 @@ def test_port_sources_have_no_jax_or_reference_imports():
             "src/repro_torch/serving/__init__.py",
             "src/repro_torch/serving/ged_service.py",
             "src/repro_torch/launch/__init__.py",
-            "src/repro_torch/launch/serve.py"} <= names
+            "src/repro_torch/launch/serve.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/qwen3_8b.py",
+            "src/repro_torch/models/config.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/flash.py",
+            "src/repro_torch/models/params.py",
+            "src/repro_torch/models/ssm.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/serving/lm_decode.py"} <= names
     offenders = [f"{f.name}:{i}: {line.strip()}"
                  for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)

@@ -17,6 +17,8 @@ reference's and with the port's single-device run; ``"auto"``'s counters
 exactly.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
@@ -32,8 +34,10 @@ from repro_torch.data.graphs import (aids_like_graph, perturb,  # noqa: E402
 from repro_torch.ged import faults  # noqa: E402
 from repro_torch.ged.exec import ShardedExecutor  # noqa: E402
 from repro_torch.kernels import autotune  # noqa: E402
-from repro_torch.parallel.sharding import pair_devices  # noqa: E402
+from repro_torch.parallel.sharding import (DeviceMesh,  # noqa: E402
+                                           pair_devices, pairs_axes)
 
+ROOT = Path(__file__).resolve().parents[1]
 MESH = ["cpu"] * 4
 PAIRS = 11
 SMALL = dict(slots=16, pool=64, expand=4, max_iters=64, cache=False)
@@ -345,6 +349,109 @@ def test_mixed_nested_and_disagreeing_meshes_raise():
     with pytest.raises(ValueError, match="disagrees"):
         ged.GraphStore([([0], [])], mesh=MESH, device="cuda")
     assert pair_devices(MESH, device="cpu") == (torch.device("cpu"),) * 4
+
+
+# ------------------------------------------------------- named meshes
+
+# (grid shape, axis names, axes=) of the reference's three named meshes
+NAMED = {"data-model": ((4, 2), ("data", "model"), None),
+         "pod-data-model": ((2, 2, 2), ("pod", "data", "model"), None),
+         "axes-model": ((4, 2), ("data", "model"), ("model",))}
+
+
+def _grid(shape, leaf):
+    return leaf if not shape else [_grid(shape[1:], leaf)
+                                   for _ in range(shape[0])]
+
+
+@pytest.fixture(scope="module")
+def reference_named_meshes():
+    """``pairs_axes`` / ``ShardedExecutor(mesh, axes).axes`` and
+    ``batch_multiple`` of the reference on 8 fake CPU devices, read in a
+    subprocess (the device count is fixed when JAX starts)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import json, jax\n"
+        "from repro.ged.exec import ShardedExecutor\n"
+        "from repro.parallel.sharding import pairs_axes\n"
+        f"cases = {NAMED!r}\n"
+        "out = {}\n"
+        "for key, (shape, names, axes) in cases.items():\n"
+        "    mesh = jax.make_mesh(tuple(shape), tuple(names))\n"
+        "    ex = ShardedExecutor(mesh, axes)\n"
+        "    out[key] = [list(pairs_axes(mesh)), list(ex.axes),\n"
+        "                ex.batch_multiple]\n"
+        "print(json.dumps(out))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=8")
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    return json.loads(res.stdout.splitlines()[-1])
+
+
+@pytest.mark.parametrize("case", sorted(NAMED))
+def test_named_meshes_shard_pairs_like_the_reference(
+        reference_named_meshes, case):
+    """On CPU device grids a ``DeviceMesh`` has the reference's pairs axes
+    and batch multiple (4, 4 and 2 for the three meshes), and each shard
+    runs on the first device of its replica group."""
+    shape, names, axes = NAMED[case]
+    mesh = DeviceMesh(_grid(shape, "cpu"), names)
+    assert mesh.shape == dict(zip(names, shape))
+    ex = ShardedExecutor(mesh, axes=axes, device="cpu")
+    want_pairs, want_axes, want_mult = reference_named_meshes[case]
+    assert list(pairs_axes(mesh)) == want_pairs
+    assert list(ex.axes) == want_axes
+    assert ex.batch_multiple == want_mult
+    assert ged.GedEngine("sharded", mesh=mesh, device="cpu").batch_multiple \
+        == (want_mult if axes is None else 4)
+    # distinct devices along the replicated axis: shards take index 0 of it
+    tagged = DeviceMesh([["cpu", "cpu:0"]] * 4, ("data", "model"))
+    assert pair_devices(tagged) == (torch.device("cpu"),) * 4
+    assert pair_devices(tagged, axes=("model",)) == \
+        (torch.device("cpu"), torch.device("cpu", 0))
+
+
+def test_named_mesh_errors():
+    with pytest.raises(ValueError, match="axis names"):
+        DeviceMesh([["cpu"] * 2] * 2, ("data",))
+    with pytest.raises(ValueError, match="ragged"):
+        DeviceMesh([["cpu"] * 2, ["cpu"]], ("data", "model"))
+    mesh = DeviceMesh([["cpu"] * 2] * 2, ("data", "model"))
+    with pytest.raises(ValueError, match="axes"):
+        ShardedExecutor(mesh, axes=("pod",), device="cpu")
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        ShardedExecutor(MESH, axes=("data",), device="cpu")
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        pair_devices([["cpu", "cpu"]])
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("backend", ["sharded", "auto"])
+def test_named_mesh_outcomes_equal_the_reference(reference_runs, backend,
+                                                 mode):
+    """``"sharded"`` and ``"auto"`` on the ``(4, 2)`` ``("data",
+    "model")`` CPU grid (four pair shards) answer like the reference's
+    single-device ``"jax"`` / ``"auto"`` run field by field, with equal
+    ``"auto"`` counters; ``GraphStore(mesh=...)`` takes the same mesh."""
+    pairs, ref = reference_runs
+    mesh = DeviceMesh(_grid((4, 2), "cpu"), ("data", "model"))
+    rungs = RUNGS if backend == "auto" else None
+    eng = _engine(ged, backend, rungs, mesh=mesh)
+    assert eng.batch_multiple == 4
+    got = _run(eng, pairs, MODES[mode])
+    want, want_stats = ref[backend, mode]
+    assert [_row(o, False) for o in got] == [_row(o, False) for o in want]
+    if backend == "auto":
+        assert _counters(eng.stats) == _counters(want_stats)
+    if backend == "sharded" and mode == "compute":
+        store = ged.GraphStore([g for p in pairs for g in p][:12], mesh=mesh,
+                               device="cpu", cache=False)
+        assert store.executor.batch_multiple == 4
 
 
 def test_sharded_defaults_to_every_card(monkeypatch):
