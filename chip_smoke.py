@@ -133,24 +133,35 @@ nothing falls back to the CPU):
     signatures byte-equal, hits equal the single-device store's), each
     wall beside the single-device one;
 13. ``[lm]``, the LM serving path (no TPU kernel lies on it: the
-    reference's ``models/flash.py`` is pure JAX): qwen3-8b at full width
-    and depth (36 layers, d 4096, about 8.19 B parameters, 32.8 GB in f32)
-    from ``init_params(device="cuda")``; ``generate`` on 4 prompts of 32
-    tokens for 16 new ones in bf16 compute, then its loop again with each
-    span ended by a synchronize (prefill ms, decode ms per token, tokens/s;
-    the tokens equal ``generate``'s), launches and device-busy share per
-    decode step from ``torch.profiler``, and at f32 compute on the same
-    weights the prefill and decode logits against the full forward's
+    reference's ``models/flash.py``, ``moe.py`` and ``ssm.py`` are pure
+    JAX): qwen3-8b (36 layers, d 4096, about 8.19 B parameters, 32.8 GB
+    in f32) and qwen2-moe-a2.7b (24 layers, d 2048, 64 experts of which
+    60 route, top-4, 4 shared; 15.15 B parameters, 60.6 GB in f32) at
+    full width and depth, one after the other, each from
+    ``init_params(device="cuda")`` and freed before the next;
+    ``generate`` on 4 prompts of 32 tokens for 16 new ones in bf16
+    compute, then its loop again with each span ended by a synchronize
+    (prefill ms, decode ms per token, tokens/s; the tokens equal
+    ``generate``'s), launches and device-busy share per decode step from
+    ``torch.profiler``, the MoE prefill's dropped assignments, the peak
+    memory, and at f32 compute on the same weights (drop-free MoE
+    capacity) the prefill and decode logits against the full forward's
     (``tests/test_archs.py``'s tolerance; every cache row against the
-    forward's K/V, and the decode step against the forward whose last
-    position attends to the cache rows the step read);
-    one full-width layer's prefill
+    forward's K/V, and the decode step against the forward whose
+    attention reads the cache rows the step read);
+    one qwen3-8b layer's prefill
     at S = 2048 with ``impl="flash"`` against ``"naive"`` (f32 and bf16);
     gemma3-1b at full size on a 600-token prompt, which wraps its 512-slot
-    rings (the same consistency check, and ``generate``); and reduced
-    nemotron-4-15b, qwen2-72b, qwen2-vl-2b and a ``kv_quant`` qwen3-8b on
-    the card against the port on the CPU with the same weights at f32
-    (logits and caches, ``generate``'s tokens equal);
+    rings (the same consistency check, and ``generate``); rwkv6-3b,
+    zamba2-7b and whisper-large-v3 at full size (whisper's 1500 frames
+    from the seed): one ``generate`` each, the same consistency check
+    (zamba2's shared block and whisper's self and cross caches), and the
+    prefill's final SSM states against the states after the same tokens
+    decoded one at a time; and reduced configs of every family (a
+    ``kv_quant`` qwen3-8b, qwen2-moe-a2.7b at a capacity that drops, a
+    constructed pure-mamba2 stack among them) on the card against the
+    port on the CPU with the same weights at f32 (logits and caches,
+    ``generate``'s tokens equal);
 14. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
     ``"auto"`` run, the fused store's, the services' and the mesh
     ``"auto"`` run's), the card's name and power limit, and as the last
@@ -1841,7 +1852,57 @@ def max_diff(got, want, tol, tag=""):
     return float(diff.max()) if diff.numel() else 0.0
 
 
-def consistency(params, cfg, prompt, patches=None):
+@contextlib.contextmanager
+def pinned_routes(cfg, b, s):
+    """Pin the MoE routing of full forwards over ``s + 1`` positions to
+    the routing that a prefill over ``s`` and a decode step at ``s`` chose
+    (their ``router_topk`` calls come first inside the context, one per
+    layer each).
+
+    Routing is discrete: f32 noise between two matmul shapes can flip a
+    near-tied top-k choice, and a flipped token takes another expert's
+    path.  A forward's layer ``i`` gets the recorded ids, with weights
+    re-read from its own probabilities; ``flips`` counts the tokens whose
+    own top-k differed, ``least_margin`` is the smallest gap between the
+    k-th and the (k+1)-th probability among them."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    route, n, k = moe_lib.router_topk, cfg.n_layers, cfg.moe.top_k
+    rec, info = [], {"flips": 0, "least_margin": None}
+
+    def pinned(x, wr, c):
+        w, ids, probs = route(x, wr, c)
+        if len(rec) < 2 * n:
+            rec.append(ids)
+            return w, ids, probs
+        i = (len(rec) - 2 * n) % n
+        rec.append(None)
+        want = torch.cat([rec[i].reshape(b, s, k),
+                          rec[n + i].reshape(b, 1, k)], 1).reshape(-1, k)
+        flipped = (ids.sort(-1).values != want.sort(-1).values).any(-1)
+        if bool(flipped.any()):
+            top = probs[flipped].sort(-1, descending=True).values
+            gap = float((top[:, k - 1] - top[:, k]).min())
+            info["flips"] += int(flipped.sum())
+            info["least_margin"] = min(gap, info["least_margin"] or gap)
+        w = torch.gather(probs, -1, want)
+        return w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9), want, \
+            probs
+
+    moe_lib.router_topk = pinned
+    try:
+        yield info
+    finally:
+        moe_lib.router_topk = route
+
+
+def abs_max(got, want, tol=None, tag=""):
+    """``max_diff`` without the check: for numbers kept unchecked."""
+    return float((got.float() - want.float()).abs().max())
+
+
+def consistency(params, cfg, prompt, patches=None, frames=None,
+                checked=True):
     """``tests/test_archs.py``'s oracle at full size: the prompt's last
     token decoded against the caches of a prefill over the others, held
     to the full forward over the whole prompt.
@@ -1856,7 +1917,15 @@ def consistency(params, cfg, prompt, patches=None):
     ``p % T`` holding position ``p``); and the decode logits equal the
     full forward's whose last position attends to the very K/V rows the
     decode step read.  The prefill logits are held to the plain
-    forward's.
+    forward's.  The forward's attention calls map to caches in order:
+    a layer's ``k``/``v`` (or its ring or global cache), zamba2's shared
+    block's ``attn_k``/``attn_v`` once per group, and whisper's decoder
+    layer's ``self_k``/``self_v`` then its ``cross_k``/``cross_v`` (all
+    ``enc_seq`` rows; the encoder's calls read no cache).  An rwkv6 or
+    mamba2 stack makes no attention call, so there the decode logits are
+    held to the plain forward's.  An MoE's routing is pinned
+    (``pinned_routes``; its flips are returned).  ``checked=False``
+    returns every number without holding it to the tolerance.
     """
     import torch
     from repro_torch.models import layers as L
@@ -1864,63 +1933,246 @@ def consistency(params, cfg, prompt, patches=None):
     from repro_torch.serving.lm_decode import _grow_caches
     b, s = prompt.shape[0], prompt.shape[1] - 1
     stream = s + (0 if patches is None else patches.shape[1])
-    windows = cfg.windows()
-    mixed = any(w > 0 for w in windows)
     plain = T.reference_attention
 
-    def layer_cache(i):
-        if not mixed:
-            return caches["k"][i], caches["v"][i]
-        kind = "local" if windows[i] > 0 else "global"
-        j = sum(1 for w in windows[:i] if (w > 0) == (windows[i] > 0))
-        return caches[kind + "_k"][j], caches[kind + "_v"][j]
+    def cache_table():
+        """(k cache, v cache, cross?) per attention call, None: no cache."""
+        if cfg.family == "audio":
+            out = [None] * cfg.encdec.enc_layers
+            for i in range(cfg.n_layers):
+                out += [(caches["self_k"][i], caches["self_v"][i], False),
+                        (caches["cross_k"][i], caches["cross_v"][i], True)]
+            return out
+        if cfg.family == "hybrid":
+            return [(k, v, False) for k, v in zip(caches["attn_k"],
+                                                  caches["attn_v"])]
+        if cfg.family == "ssm":
+            return []
+        windows = cfg.windows()
+        if not any(w > 0 for w in windows):
+            return [(caches["k"][i], caches["v"][i], False)
+                    for i in range(cfg.n_layers)]
+        out = []
+        for i, w in enumerate(windows):
+            kind = "local" if w > 0 else "global"
+            j = sum(1 for x in windows[:i] if (x > 0) == (w > 0))
+            out.append((caches[kind + "_k"][j], caches[kind + "_v"][j],
+                        False))
+        return out
 
     seen = []
 
     def last_row_on_cache(q, k, v, causal=True, window=0,
                           kv_valid=10 ** 9, q_offset=0):
-        seen.append((k, v))
         out = plain(q, k, v, causal, window, kv_valid, q_offset)
-        ck, cv = layer_cache(len(seen) - 1)
-        rows = min(stream + 1, ck.shape[1])     # valid slots after decode
-        out[:, -1:] = plain(q[:, -1:], ck[:, :rows], cv[:, :rows], False)
+        ent = table[len(seen)]
+        seen.append((k, v, ent))
+        if ent is not None:
+            ck, cv, cross = ent
+            # valid slots after decode; a cross cache is valid throughout
+            rows = ck.shape[1] if cross else min(stream + 1, ck.shape[1])
+            out[:, -1:] = plain(q[:, -1:], ck[:, :rows], cv[:, :rows], False)
         return out
 
     def full_logits():
         h = T.forward_hidden(params, prompt, cfg, patches=patches,
-                             impl="naive")
+                             frames=frames, impl="naive")
         return L.lm_logits(L.norm(h[:, -2:], params["final_norm"], cfg),
                            params, cfg)
 
-    with torch.no_grad():
+    pin = (pinned_routes(cfg, b, stream) if cfg.moe is not None
+           else contextlib.nullcontext())
+    with torch.no_grad(), pin as routes:
         logits_p, caches = T.prefill_step(params, prompt[:, :s], cfg,
-                                          patches=patches, impl="naive")
+                                          patches=patches, frames=frames,
+                                          impl="naive")
         caches = _grow_caches(caches, cfg, b, stream, stream + 4)
         logits_d, caches = T.decode_step(params, caches, prompt[:, s:],
                                          stream, cfg)
         full = full_logits()
+        table = cache_table()
         T.reference_attention = last_row_on_cache
         try:
             on_cache = full_logits()
         finally:
             T.reference_attention = plain
+    assert len(seen) == len(table), (len(seen), len(table))
+    diff = max_diff if checked else abs_max
     cache_diff = 0.0
-    for i, (k, v) in enumerate(seen):
-        ck, cv = layer_cache(i)
-        t = ck.shape[1]
-        pos = torch.arange(max(0, stream + 1 - t), stream + 1,
-                           device=k.device)
-        for got, want in ((ck, k), (cv, v)):
-            cache_diff = max(cache_diff, max_diff(
-                got[:, pos % t], want[:, pos].to(torch.bfloat16), LM_TOL,
-                f"layer {i} cache"))
+    for i, (k, v, ent) in enumerate(seen):
+        if ent is None:
+            continue
+        ck, cv, cross = ent
+        if cross:
+            es = ck.shape[1]
+            rows = ((ck, k[:, :es]), (cv, v[:, :es]))
+        else:
+            t = ck.shape[1]
+            pos = torch.arange(max(0, stream + 1 - t), stream + 1,
+                               device=k.device)
+            rows = ((ck[:, pos % t], k[:, pos]), (cv[:, pos % t], v[:, pos]))
+        for got, want in rows:
+            cache_diff = max(cache_diff, diff(
+                got, want.to(torch.bfloat16), LM_TOL,
+                f"attention call {i} cache"))
     torch.cuda.synchronize()
-    return {"prefill": max_diff(logits_p, full[:, 0], LM_TOL, "prefill"),
-            "caches_vs_forward_kv": cache_diff,
-            "decode_vs_forward_on_cached_kv": max_diff(
-                logits_d, on_cache[:, 1], LM_TOL, "decode"),
-            "decode_vs_forward_unchecked": float(
-                (logits_d - full[:, 1]).abs().max())}
+    out = {"prefill": diff(logits_p, full[:, 0], LM_TOL, "prefill"),
+           "caches_vs_forward_kv": cache_diff,
+           "decode_vs_forward_on_cached_kv": diff(
+               logits_d, on_cache[:, 1], LM_TOL, "decode"),
+           "decode_vs_forward_unchecked": abs_max(logits_d, full[:, 1])}
+    if cfg.moe is not None:
+        out["route_flips_pinned"] = routes["flips"]
+        out["least_top_k_margin_of_a_flip"] = routes["least_margin"]
+    return out
+
+
+MIXERS = {"rwkv6_time_mix": "time_mix", "rwkv6_channel_mix": "channel_mix",
+          "mamba2_train": "mamba2", "mamba2_decode": "mamba2"}
+STATE_KEYS = ("wkv", "att_x", "ffn_x", "ssd", "conv")
+
+
+@contextlib.contextmanager
+def forced_mixers():
+    """Teacher-force the recurrent mixers (RWKV6's time and channel mix,
+    Mamba2's chunked and recurrent forms) onto a recorded forward.
+
+    In ``ctl["mode"] == "record"`` every mixer call (a full forward's)
+    keeps its input and output.  In any other mode a call's input is
+    replaced by the recorded input of the same layer at the same
+    positions (all of them up to its length, or the one position
+    ``ctl["pos"]``), and its output is held to the recorded output there
+    (``LM_TOL``; the largest difference per mode in ``ctl["diff"]``).
+    The state a mixer carries goes on through the caches as usual, so a
+    prefill and the decode steps after it are checked mixer by mixer, on
+    the forward's inputs, without the drift that differences between two
+    runs' matmul shapes gather over many layers."""
+    from repro_torch.models import ssm as ssm_lib
+    orig = {n: getattr(ssm_lib, n) for n in MIXERS}
+    ctl = {"mode": "record", "pos": None, "diff": {},
+           "rec": {k: [] for k in MIXERS.values()},
+           "calls": dict.fromkeys(MIXERS.values(), 0)}
+
+    def wrap(name):
+        key = MIXERS[name]
+
+        def spy(x, *args, **kw):
+            if ctl["mode"] == "record":
+                res = orig[name](x, *args, **kw)
+                ctl["rec"][key].append((x, res[0] if isinstance(res, tuple)
+                                        else res))
+                return res
+            rec = ctl["rec"][key]
+            xs, outs = rec[ctl["calls"][key] % len(rec)]
+            ctl["calls"][key] += 1
+            pos = ctl["pos"]
+            part = slice(0, x.shape[1]) if pos is None else \
+                slice(pos, pos + 1)
+            res = orig[name](xs[:, part], *args, **kw)
+            out = res[0] if isinstance(res, tuple) else res
+            mode = ctl["mode"]
+            ctl["diff"][mode] = max(ctl["diff"].get(mode, 0.0), max_diff(
+                out, outs[:, part], LM_TOL, f"{name} {mode}"))
+            return res
+        return spy
+
+    for name in MIXERS:
+        setattr(ssm_lib, name, wrap(name))
+    try:
+        yield ctl
+    finally:
+        for name, fn in orig.items():
+            setattr(ssm_lib, name, fn)
+
+
+def mixer_check(params, cfg, prompt):
+    """The SSM mixers of an rwkv6 or zamba2 stack at full size, forced
+    onto a forward over the whole prompt (``forced_mixers``): a prefill
+    over the prompt less its last token (``prefill``), the decode step
+    of that token on the prefill's state (``decode``), and the prompt
+    less its last token decoded one token at a time from zero states
+    (``steps``); and the states after those steps against the prefill's
+    (``state_*``), all within ``test_archs``'s tolerance."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.lm_decode import _grow_caches
+    b, s = prompt.shape[0], prompt.shape[1] - 1
+    with torch.no_grad(), forced_mixers() as ctl:
+        T.forward_hidden(params, prompt, cfg, impl="naive")
+        ctl["mode"] = "prefill"
+        _, pre = T.prefill_step(params, prompt[:, :s], cfg, impl="naive")
+        ctl["mode"], ctl["pos"] = "decode", s
+        T.decode_step(params, _grow_caches(pre, cfg, b, s, s + 1),
+                      prompt[:, s:], s, cfg)
+        ctl["mode"] = "steps"
+        caches = T.init_caches(cfg, b, s, device=prompt.device)
+        for t in range(s):
+            ctl["pos"] = t
+            _, caches = T.decode_step(params, caches, prompt[:, t:t + 1], t,
+                                      cfg)
+    torch.cuda.synchronize()
+    out = {"mixer_" + k: v for k, v in ctl["diff"].items()}
+    out.update({"state_" + k: max_diff(caches[k], pre[k], LM_TOL,
+                                       f"state {k}")
+                for k in STATE_KEYS if k in pre})
+    return out
+
+
+def layer_drift(params, cfg, prompt):
+    """How a stack amplifies f32 noise: run layer by layer over the prompt
+    less its last token and over the whole prompt (the runs differ only
+    in their matmuls' shapes), the largest |difference| of the hidden
+    state at the shorter run's last position after the first and the
+    last layer, and the geometric-mean growth per layer."""
+    import torch
+    from repro_torch.models import transformer as T
+    s = prompt.shape[1] - 1
+
+    def block(x, i):
+        lp = T._layer(params["layers"], i)
+        if cfg.ssm.kind == "rwkv6":
+            return T.rwkv_block(x, lp, cfg)[0]
+        return T.mamba_block(x, lp, cfg)
+
+    with torch.no_grad():
+        xa = T._embed_stream(params, prompt[:, :s], cfg, None)
+        xb = T._embed_stream(params, prompt, cfg, None)
+        drift = []
+        for i in range(cfg.n_layers):
+            xa, xb = block(xa, i), block(xb, i)
+            drift.append(float((xa[:, -1] - xb[:, s - 1]).abs().max()))
+    growth = (drift[-1] / drift[0]) ** (1 / (len(drift) - 1)) \
+        if drift[0] > 0 and len(drift) > 1 else None
+    return {"first_layer": drift[0], "last_layer": drift[-1],
+            "growth_per_layer": growth}
+
+
+def prefill_drops(params, cfg, prompt):
+    """Dropped MoE assignments in one prefill, counted around
+    ``moe._dispatch_group`` (a dropped assignment goes to the spare row,
+    ``ROADMAP.md`` R5)."""
+    import torch
+    from repro_torch.models import moe as moe_lib
+    from repro_torch.models import transformer as T
+    counts = []
+    dispatch = moe_lib._dispatch_group
+
+    def counting(*args):
+        out = dispatch(*args)
+        counts.append(int((~out[2]).sum()))
+        return out
+
+    moe_lib._dispatch_group = counting
+    try:
+        with torch.no_grad():
+            T.prefill_step(params, prompt, cfg, impl="naive")
+    finally:
+        moe_lib._dispatch_group = dispatch
+    tokens = prompt.shape[0] * prompt.shape[1]
+    return {"dropped": sum(counts),
+            "assignments": tokens * cfg.moe.top_k * len(counts),
+            "capacity": moe_lib.capacity(tokens, cfg),
+            "per_layer": counts}
 
 
 def profile_decode(params, cfg, prompt, steps: int = 3):
@@ -1992,37 +2244,40 @@ def timed_generate(params, cfg, prompt, max_new):
     return torch.cat(toks, 1).cpu().numpy(), prefill, steps
 
 
-def lm_phase(smi):
-    """The LM serving path on the card: qwen3-8b at full width and depth
-    (``generate`` timed, launches per decode step, f32 consistency),
-    gemma3-1b at full size on a prompt that wraps its rings, one
-    full-width layer's prefill with ``impl="flash"`` against ``"naive"``,
-    and four reduced configs on the card against the port on the CPU."""
+def free_card():
+    import gc
     import torch
-    from repro_torch.configs import get_arch
-    from repro_torch.models import transformer as T
-    from repro_torch.models.config import reduced
-    from repro_torch.models.params import (init_params, param_count,
-                                           params_from_numpy, tree_leaves)
-    from repro_torch.serving import generate
-    t_phase = time.perf_counter()
-    summ = {}
-    rng = np.random.default_rng(SEED + 20)
-
-    # ---- qwen3-8b, full width and depth, random weights from a seed ----
-    cfg = dataclasses.replace(get_arch("qwen3-8b"), remat="none")
+    gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+
+
+def timed_model(name, seed, rng, f32_over=None):
+    """One arch at full width and depth from ``init_params(device=
+    "cuda")``: ``generate`` on LM_BATCH prompts of LM_PROMPT tokens for
+    LM_NEW new ones in bf16 compute, then its loop twice with each span
+    ended by a synchronize, launches per decode step from the profiler,
+    the MoE prefill's dropped assignments, the f32 consistency check on
+    the same weights (``f32_over`` replaces config fields for it), and
+    the peak memory.  The weights are freed before it returns."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import init_params, param_count, \
+        tree_leaves
+    from repro_torch.serving import generate
+    cfg = dataclasses.replace(get_arch(name), remat="none")
+    free_card()
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "allocated_before_bytes": torch.cuda.memory_allocated()}
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=SEED, device="cuda")
+    params = init_params(cfg, seed=seed, device="cuda")
     torch.cuda.synchronize()
     leaves = [t for _, t in tree_leaves(params)]
     n_params = param_count(cfg)
     assert n_params == sum(t.numel() for t in leaves)
-    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
-           "params": n_params,
-           "param_bytes": sum(t.numel() * t.element_size() for t in leaves),
-           "init_s": time.perf_counter() - t0}
+    row.update(params=n_params,
+               param_bytes=sum(t.numel() * t.element_size() for t in leaves),
+               init_s=time.perf_counter() - t0)
     del leaves
     prompt = rng.integers(0, cfg.vocab, (LM_BATCH, LM_PROMPT + 1)).astype(
         np.int32)
@@ -2033,11 +2288,10 @@ def lm_phase(smi):
     row["first_generate_s"] = time.perf_counter() - t0
     assert out.shape == (LM_BATCH, LM_NEW), out.shape
     assert ((out >= 0) & (out < cfg.vocab)).all()
+    on_card = torch.as_tensor(prompt[:, :LM_PROMPT], device="cuda")
     runs = []
     for _ in range(2):
-        toks, prefill, steps = timed_generate(
-            params, cfg, torch.as_tensor(prompt[:, :LM_PROMPT],
-                                         device="cuda"), LM_NEW)
+        toks, prefill, steps = timed_generate(params, cfg, on_card, LM_NEW)
         assert np.array_equal(toks, out), "timed loop != generate"
         runs.append({"prefill_ms": prefill * 1e3,
                      "decode_ms_per_token_median":
@@ -2050,24 +2304,133 @@ def lm_phase(smi):
                      / statistics.median(steps)})
     row["bf16_generate"] = {"batch": LM_BATCH, "prompt": LM_PROMPT,
                             "new": LM_NEW, "runs": runs}
-    row["profile"] = profile_decode(
-        params, cfg, torch.as_tensor(prompt[:, :LM_PROMPT], device="cuda"))
+    row["profile"] = profile_decode(params, cfg, on_card)
     if "device_ms_per_step" in row["profile"]:
         # the profiler slows the host; the unprofiled step's wall is
         # the decode median of the last timed run
         row["profile"]["device_share_of_unprofiled_step"] = (
             row["profile"]["device_ms_per_step"]
             / runs[-1]["decode_ms_per_token_median"])
-    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    if cfg.moe is not None:
+        row["prefill_moe_drops"] = prefill_drops(params, cfg, on_card)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                **(f32_over(cfg) if f32_over else {}))
     row["f32_consistency_max_diff"] = consistency(
         params, cfg32, torch.as_tensor(prompt, device="cuda"))
     row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
-    summ["qwen3_8b"] = row
-    log("[lm] qwen3-8b: " + json.dumps(row))
     del params
-    torch.cuda.empty_cache()
+    free_card()
+    return row
+
+
+def drop_free(cfg):
+    """``tests/test_archs.py``'s drop-free MoE capacity for the oracle:
+    prefill and forward route different token counts, so only drop-free
+    dispatch makes them comparable."""
+    return {"moe": dataclasses.replace(cfg.moe, capacity_factor=16.0)}
+
+
+def family_check(name, seed, rng):
+    """An SSM, hybrid or audio arch at full size: one ``generate`` in
+    bf16 compute (whisper's frames from the seed, normal x 0.02), and at
+    f32 compute the consistency check and, for SSM states, the
+    prefill's final states against token-by-token decoding."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.serving import generate
+    cfg = dataclasses.replace(get_arch(name), remat="none")
+    free_card()
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": param_count(cfg),
+           "allocated_before_bytes": torch.cuda.memory_allocated()}
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=seed, device="cuda")
+    torch.cuda.synchronize()
+    row["init_s"] = time.perf_counter() - t0
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
+                                          (LM_BATCH, LM_PROMPT + 1)),
+                             dtype=torch.int32, device="cuda")
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.as_tensor(
+            rng.normal(size=(LM_BATCH, cfg.encdec.enc_seq, cfg.d_model))
+            * 0.02, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, prompt[:, :LM_PROMPT], cfg, max_new=LM_NEW,
+                   frames=frames, impl="naive")
+    row["bf16_generate_s"] = time.perf_counter() - t0
+    assert out.shape == (LM_BATCH, LM_NEW), out.shape
+    assert ((out >= 0) & (out < cfg.vocab)).all()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    # rwkv6-3b's random weights amplify f32 noise at every layer
+    # (``layer_drift``), so its whole-stack numbers are kept unchecked
+    # and its mixers are checked one by one on the forward's inputs
+    row["f32_consistency_max_diff"] = consistency(
+        params, cfg32, prompt, frames=frames, checked=cfg.family != "ssm")
+    if cfg.family in ("ssm", "hybrid"):
+        row["f32_mixers_and_states_max_diff"] = mixer_check(params, cfg32,
+                                                            prompt)
+    if cfg.family == "ssm":
+        row["f32_layer_drift_unchecked"] = layer_drift(params, cfg32, prompt)
+    row["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    del params, frames
+    free_card()
+    return row
+
+
+def reduced_configs():
+    """(tag, config, prompt length) of the card-vs-CPU checks, f32."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models.config import reduced
+
+    def small(name, **over):
+        return dataclasses.replace(reduced(get_arch(name)), remat="none",
+                                   compute_dtype="float32", **over)
+    moe = small("qwen2-moe-a2.7b")
+    return [
+        ("nemotron-4-15b", small("nemotron-4-15b"), 12),
+        ("qwen2-72b", small("qwen2-72b"), 12),
+        ("qwen2-vl-2b", small("qwen2-vl-2b"), 12),
+        ("qwen3-8b kv_quant", small("qwen3-8b", kv_quant=True), 12),
+        ("moonshot-v1-16b-a3b", small("moonshot-v1-16b-a3b"), 12),
+        # 64 tokens x top-2 over 8 experts at capacity 8: drops certain
+        ("qwen2-moe-a2.7b dropping", dataclasses.replace(
+            moe, moe=dataclasses.replace(moe.moe, capacity_factor=0.25)), 32),
+        ("rwkv6-3b", small("rwkv6-3b"), 12),
+        ("zamba2-7b 4 layers", small("zamba2-7b", n_layers=4), 12),
+        ("whisper-large-v3", small("whisper-large-v3"), 12),
+        ("mamba2 (constructed)", small("zamba2-7b", family="ssm",
+                                       hybrid_attn_every=0), 12),
+    ]
+
+
+def lm_phase(smi):
+    """The LM serving path on the card: qwen3-8b and qwen2-moe-a2.7b at
+    full width and depth (``generate`` timed, launches per decode step,
+    f32 consistency), gemma3-1b at full size on a prompt that wraps its
+    rings, one full-width layer's prefill with ``impl="flash"`` against
+    ``"naive"``, rwkv6-3b, zamba2-7b and whisper-large-v3 at full size,
+    and reduced configs of every family on the card against the port on
+    the CPU."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count, \
+        params_from_numpy
+    from repro_torch.serving import generate
+    t_phase = time.perf_counter()
+    summ = {}
+    rng = np.random.default_rng(SEED + 20)
+
+    # ---- qwen3-8b, full width and depth, random weights from a seed ----
+    row = timed_model("qwen3-8b", SEED, rng)
+    summ["qwen3_8b"] = row
+    log("[lm] qwen3-8b: " + json.dumps(row) + f" ({smi})")
 
     # ---- one full-width layer's prefill at S = 2048, flash vs naive ----
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), remat="none")
     one = dataclasses.replace(cfg, n_layers=1)
     params = init_params(one, seed=SEED + 1, device="cuda")
     long = torch.as_tensor(rng.integers(0, cfg.vocab, (1, LONG_PREFILL)),
@@ -2097,10 +2460,10 @@ def lm_phase(smi):
     log("[lm] qwen3-8b one layer, S=2048, flash vs naive: "
         + json.dumps(row))
     del params, res, ln, cn, lf, cf
-    torch.cuda.empty_cache()
 
     # ---- gemma3-1b, full size, a prompt that wraps the 512-slot rings --
     cfg = dataclasses.replace(get_arch("gemma3-1b"), remat="none")
+    free_card()
     params = init_params(cfg, seed=SEED + 2, device="cuda")
     prompt = torch.as_tensor(rng.integers(0, cfg.vocab,
                                           (2, GEMMA_PROMPT + 1)),
@@ -2116,37 +2479,52 @@ def lm_phase(smi):
     assert out.shape == (2, 8) and ((out >= 0) & (out < cfg.vocab)).all()
     summ["gemma3_1b"] = row
     log("[lm] gemma3-1b: " + json.dumps(row))
-    del params
-    torch.cuda.empty_cache()
+    del params, prompt
+
+    # ---- qwen2-moe-a2.7b, full width and depth (60.6 GB of f32) --------
+    row = timed_model("qwen2-moe-a2.7b", SEED + 3, rng, f32_over=drop_free)
+    summ["qwen2_moe_a2_7b"] = row
+    log("[lm] qwen2-moe-a2.7b: " + json.dumps(row) + f" ({smi})")
+
+    # ---- the SSM, hybrid and audio archs at full size -------------------
+    for i, name in enumerate(("rwkv6-3b", "zamba2-7b", "whisper-large-v3")):
+        row = family_check(name, SEED + 4 + i, rng)
+        summ[name] = row
+        log(f"[lm] {name}: " + json.dumps(row) + f" ({smi})")
 
     # ---- reduced configs: the card against the port on the CPU --------
     tol = dict(atol=1e-5, rtol=1e-4)
     cards = {}
-    for name, over in (("nemotron-4-15b", {}), ("qwen2-72b", {}),
-                       ("qwen2-vl-2b", {}), ("qwen3-8b", {"kv_quant": True})):
-        c = dataclasses.replace(reduced(get_arch(name)), remat="none",
-                                compute_dtype="float32", **over)
+    for tag, c, s in reduced_configs():
         cpu = init_params(c, seed=SEED, device="cpu")
         card = params_from_numpy(cpu, device="cuda")
-        toks = rng.integers(0, c.vocab, (2, 13)).astype(np.int32)
-        patches = None
+        toks = rng.integers(0, c.vocab, (2, s + 1)).astype(np.int32)
+        patches = frames = None
         if c.vlm is not None:
             patches = (rng.normal(size=(2, c.vlm.num_patches, c.d_model))
                        * 0.02).astype(np.float32)
+        if c.family == "audio":
+            frames = (rng.normal(size=(2, c.encdec.enc_seq, c.d_model))
+                      * 0.02).astype(np.float32)
         got = {}
         for dev, p in (("cuda", card), ("cpu", cpu)):
             with torch.no_grad():
-                lp, caches = T.prefill_step(p, toks[:, :12], c,
-                                            patches=patches, impl="naive")
-            got[dev] = (lp, caches, generate(p, toks[:, :12], c, max_new=4,
-                                             patches=patches, impl="naive",
-                                             device=dev))
+                lp, caches = T.prefill_step(p, toks[:, :s], c,
+                                            patches=patches, frames=frames,
+                                            impl="naive")
+            got[dev] = (lp, caches, generate(p, toks[:, :s], c, max_new=4,
+                                             patches=patches, frames=frames,
+                                             impl="naive", device=dev))
         (lg, cg, og), (lc, cc, oc) = got["cuda"], got["cpu"]
-        d = {"logits": max_diff(lg.cpu(), lc, tol, name),
-             "caches": max(max_diff(cg[k].cpu(), cc[k], tol, f"{name} {k}")
+        d = {"logits": max_diff(lg.cpu(), lc, tol, tag),
+             "caches": max(max_diff(cg[k].cpu(), cc[k], tol, f"{tag} {k}")
                            for k in cc)}
-        assert np.array_equal(og, oc), (name, og, oc)
-        cards[name + (" kv_quant" if over else "")] = d
+        assert np.array_equal(og, oc), (tag, og, oc)
+        if c.moe is not None:
+            d["prefill_drops"] = prefill_drops(
+                card, c, torch.as_tensor(toks[:, :s], device="cuda"))["dropped"]
+            assert d["prefill_drops"] > 0 or "dropping" not in tag, (tag, d)
+        cards[tag] = d
     summ["reduced_card_vs_cpu_max_diff"] = cards
     log("[lm] reduced configs, card vs CPU: " + json.dumps(cards)
         + "; generate tokens equal")
@@ -2316,7 +2694,7 @@ def main(argv) -> int:
         pairs, vocab, comp_t, ver_t, pairs + big, label_vocab(pairs + big),
         auto_comp, auto_ver, auto_summ["all_fused_s"], sub_store, smi)
 
-    # ---- the LM serving path: qwen3-8b and gemma3-1b at full size ------
+    # ---- the LM serving path: every family, two archs at full width ----
     lm_summ = lm_phase(smi)
 
     phase_launches = {"auto": launches, "store": store_launches,

@@ -4,13 +4,11 @@ GED verification (the paper's workload; the default), on the card:
   PYTHONPATH=src python -m repro_torch.launch.serve --mode ged \\
       --pairs 200 --tau 9 --size 16
 
-LM decode (reduced scale, random weights; the dense and vlm archs):
+LM decode (reduced scale, random weights; any of the ten archs):
   PYTHONPATH=src python -m repro_torch.launch.serve --mode lm \\
       --arch gemma3-1b --batch 4 --prompt-len 32 --max-new 16
 
-``--device cpu`` runs either on the CPU.  An ``--arch`` whose family the
-port has not ported yet (moe, ssm, hybrid, audio) exits with status 2
-and names ``ROADMAP.md``.
+``--device cpu`` runs either on the CPU.
 """
 
 from __future__ import annotations
@@ -60,13 +58,17 @@ def serve_lm(args) -> None:
     rng = np.random.default_rng(args.seed)
     prompt = rng.integers(0, cfg.vocab,
                           size=(args.batch, args.prompt_len)).astype(np.int32)
-    patches = None
+    frames = patches = None
+    if cfg.family == "audio":
+        frames = np.zeros((args.batch, cfg.encdec.enc_seq, cfg.d_model),
+                          np.float32)
     if cfg.vlm is not None:
         patches = np.zeros((args.batch, cfg.vlm.num_patches, cfg.d_model),
                            np.float32)
     t0 = time.time()
     out = generate(params, prompt, cfg, max_new=args.max_new,
-                   patches=patches, impl="naive", device=args.device)
+                   frames=frames, patches=patches, impl="naive",
+                   device=args.device)
     dt = time.time() - t0
     toks = args.batch * args.max_new
     print(f"generated {out.shape} in {dt:.2f}s ({toks/dt:.1f} tok/s) on "
@@ -93,12 +95,6 @@ def main(argv=None) -> int:
     if args.mode == "ged":
         serve_ged(args)
         return 0
-    from repro_torch.models.transformer import check_family
-    try:
-        check_family(get_arch(args.arch))
-    except NotImplementedError as exc:
-        print(f"--mode lm: {exc}", file=sys.stderr)
-        return 2
     args.batch = min(args.batch, 8)
     serve_lm(args)
     return 0

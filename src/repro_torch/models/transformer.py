@@ -1,44 +1,53 @@
-"""Forward passes and step functions of the dense stack.
+"""Forward passes and step functions for all ten architectures.
 
-The port of the reference's ``repro/models/transformer.py`` for the
-families that run the dense stack: ``dense`` (qwen3-8b, nemotron-4-15b,
-gemma3-1b, qwen2-72b) and ``vlm`` (qwen2-vl-2b).  A pre-norm attention +
-MLP block runs over the stacked ``(L, ...)`` parameter tree in a Python
-loop, with each layer's window and RoPE theta from :func:`_layer_meta`
-(gemma3's 5:1 local:global pattern).
+The port of the reference's ``repro/models/transformer.py``.  The
+reference scans one block body over a stacked ``(L, ...)`` parameter
+tree; the port loops over the layers in Python, one family at a time:
 
-* :func:`forward_hidden` — the whole token stream to final hidden states;
+* dense / moe / vlm: a pre-norm attention + (MLP | MoE) block, with each
+  layer's window and RoPE theta from :func:`_layer_meta` (gemma3's 5:1
+  local:global pattern);
+* ssm (rwkv6 / mamba2): token-shift / SSD blocks, chunked for prefill,
+  an O(1)-state recurrence for decode (``models/ssm.py``);
+* hybrid (zamba2): groups of ``k - 1`` mamba layers, each followed by
+  the ONE weight-shared attention block, then the remaining mamba layers;
+* audio (whisper): a non-causal encoder stack over pre-embedded frames
+  (padded to a multiple of 512, the pad masked) and a decoder stack with
+  cross-attention; sinusoidal positions on both.
+
+Entry points:
+
+* :func:`forward_hidden` — the whole stream to final hidden states;
 * :func:`prefill_step` — the same forward, also building the decode
-  caches (gemma3's local layers as ring buffers; int8 with ``kv_quant``);
-* :func:`decode_step` — one token against the caches, which it writes in
-  place at the new token's slot (the reference carries them through a
-  ``dynamic_update_index_in_dim``).
+  state (gemma3's local layers as ring buffers; int8 with ``kv_quant``;
+  the final SSM states; whisper's cross K/V);
+* :func:`decode_step` — one token against that state.  Attention caches
+  are written in place at the new token's slot (the reference carries
+  them through a ``dynamic_update_index_in_dim``); SSM states are
+  replaced by new tensors.
 
-:func:`cache_shapes` is shape arithmetic and covers every family.  The
-other families (``moe``, ``ssm``, ``hybrid``, ``audio``) raise
-``NotImplementedError``: their bodies come with later slices
-(``ROADMAP.md``), as do ``loss_fn`` / ``make_train_step``.
-
-Every function follows the device of the parameters: token, patch and
-position inputs (numpy or tensors) are moved there.
+``loss_fn`` / ``make_train_step`` come with the training slice
+(``ROADMAP.md``).  Every function follows the device of the parameters:
+token, patch, frame and position inputs (numpy or tensors) are moved
+there.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.flash import flash_attention, reference_attention
 
 FLASH_MIN = 2048 * 2048   # S*T above which the blocked path is used
 BLOCK = 512
-PORTED_FAMILIES = ("dense", "vlm")
 
 
 def _use_flash(s: int, t: int, impl: str) -> bool:
@@ -47,15 +56,6 @@ def _use_flash(s: int, t: int, impl: str) -> bool:
     if impl == "naive":
         return False
     return (s * t >= FLASH_MIN) and s % BLOCK == 0 and t % BLOCK == 0
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family outside this slice."""
-    if cfg.family not in PORTED_FAMILIES or cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet; the "
-            "port's LM path runs the dense and vlm families (see "
-            "ROADMAP.md, queue 1)")
 
 
 def _device(params) -> torch.device:
@@ -70,6 +70,25 @@ def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def sinusoid_pos(seq: int, d: int, device=None) -> torch.Tensor:
+    """(seq, d) f32 table, computed in f64 and rounded once, as the
+    reference's numpy table is."""
+    pos = np.arange(seq)[:, None]
+    dim = np.arange(d // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * dim / d)
+    tab = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1)
+    return torch.as_tensor(tab.astype(np.float32), device=device)
+
+
+def sinusoid_row(pos: int, d: int, device=None) -> torch.Tensor:
+    """The sinusoid row at position ``pos``, computed in f32 as the
+    reference's traced row is."""
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)
+    ang = torch.tensor(float(pos), dtype=torch.float32, device=device) \
+        / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)])
 
 
 # ------------------------------------------------------------ attention wrap
@@ -105,11 +124,16 @@ def attention_full(x, p, cfg: ArchConfig, pos, window, theta, *,
 # -------------------------------------------------------------- block bodies
 
 def _block_tail(x, a, lp, cfg: ArchConfig):
-    """The residual after attention output ``a``: sandwich norms, MLP."""
+    """The residual after attention output ``a``: sandwich norms, then
+    the MLP, or the MoE where ``cfg.moe`` is set."""
     if cfg.sandwich_norm:
         a = L.norm(a, lp["ln1b"], cfg)
     x = x + a
-    m = L.mlp(L.norm(x, lp["ln2"], cfg), lp["mlp"], cfg)
+    h = L.norm(x, lp["ln2"], cfg)
+    if cfg.moe is not None:
+        m = moe_lib.moe_mlp(h, lp["moe"], cfg)
+    else:
+        m = L.mlp(h, lp["mlp"], cfg)
     if cfg.sandwich_norm:
         m = L.norm(m, lp["ln2b"], cfg)
     return x + m
@@ -122,6 +146,50 @@ def dense_block(x, lp, cfg: ArchConfig, pos, window, theta, impl, schedule):
     return _block_tail(x, a, lp, cfg)
 
 
+def rwkv_block(x, lp, cfg: ArchConfig, prev=None):
+    """One RWKV6 layer; ``prev`` = (wkv, att_x, ffn_x) decodes one token
+    against that state.  Returns (x, (wkv, att_x, ffn_x))."""
+    wkv, ax, fx = prev if prev is not None else (None, None, None)
+    h = L.norm(x, lp["ln1"], cfg)
+    a, wkv, ax = ssm_lib.rwkv6_time_mix(h, lp["rwkv"], cfg, prev_x=ax,
+                                        state=wkv)
+    x = x + a
+    h = L.norm(x, lp["ln2"], cfg)
+    m, fx = ssm_lib.rwkv6_channel_mix(h, lp["rwkv"], cfg, prev_x=fx)
+    return x + m, (wkv, ax, fx)
+
+
+def mamba_block(x, lp, cfg: ArchConfig):
+    h = L.norm(x, lp["ln1"], cfg)
+    return x + ssm_lib.mamba2_train(h, lp["mamba"], cfg)
+
+
+def _mamba_prefill_block(x, lp, cfg: ArchConfig):
+    h = L.norm(x, lp["ln1"], cfg)
+    a, st = ssm_lib.mamba2_train(h, lp["mamba"], cfg, return_state=True)
+    return x + a, st
+
+
+def _mamba_decode_block(x, lp, cfg: ArchConfig, ssd, conv):
+    h = L.norm(x, lp["ln1"], cfg)
+    a, st = ssm_lib.mamba2_decode(h, lp["mamba"], cfg,
+                                  {"ssd": ssd, "conv": conv})
+    return x + a, st
+
+
+def _shared_tail(x, a, sp, cfg: ArchConfig):
+    x = x + a
+    h = L.norm(x, sp["ln2"], cfg)
+    return x + L.mlp(h, sp["mlp"], cfg)
+
+
+def shared_attn_block(x, sp, cfg: ArchConfig, pos, impl, schedule):
+    h = L.norm(x, sp["ln1"], cfg)
+    a = attention_full(h, sp["attn"], cfg, pos, 0, cfg.rope_theta,
+                       impl=impl, schedule=schedule)
+    return _shared_tail(x, a, sp, cfg)
+
+
 def _layer_meta(cfg: ArchConfig) -> Tuple[List[int], List[float]]:
     """Per-layer (window, rope_theta), 0 = global attention.  Thetas go
     through f32, as the reference's scanned f32 array does."""
@@ -131,6 +199,15 @@ def _layer_meta(cfg: ArchConfig) -> Tuple[List[int], List[float]]:
         thetas = np.where(windows == 0, np.float32(cfg.global_rope_theta),
                           thetas)
     return [int(w) for w in windows], [float(t) for t in thetas]
+
+
+def _zamba_layout(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    """(groups, mamba layers per group, mamba layers in all groups, mamba
+    layers): the stacked mamba layers ``[0, grouped)`` run in groups, each
+    followed by the shared block, and the rest after the last group."""
+    k = cfg.hybrid_attn_every
+    n_attn = cfg.n_layers // k
+    return n_attn, k - 1, n_attn * (k - 1), cfg.n_layers - n_attn
 
 
 def _embed_stream(params, tokens, cfg: ArchConfig, patches):
@@ -154,15 +231,103 @@ def forward_hidden(params, tokens, cfg: ArchConfig, *, pos=None,
                    patches=None, frames=None, impl="auto",
                    schedule="dense") -> torch.Tensor:
     """Token stream -> final hidden states (pre final-norm)."""
-    check_family(cfg)
+    if cfg.family == "audio":
+        enc = whisper_encode(params, frames, cfg, impl, schedule)
+        return whisper_decoder_hidden(params, tokens, enc, cfg, impl,
+                                      schedule)
     x = _embed_stream(params, tokens, cfg, patches)
     b, s, _ = x.shape
     pos = (torch.arange(s, dtype=torch.int32, device=x.device)[None]
            .expand(b, s) if pos is None else _tensor(pos, x.device))
+    if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
+        for i in range(cfg.n_layers):
+            x, _ = rwkv_block(x, _layer(params["layers"], i), cfg)
+        return x
+    if cfg.family == "ssm" and cfg.ssm.kind == "mamba2":
+        for i in range(cfg.n_layers):
+            x = mamba_block(x, _layer(params["layers"], i), cfg)
+        return x
+    if cfg.family == "hybrid":
+        return zamba_hidden(params, x, cfg, pos, impl, schedule)
     windows, thetas = _layer_meta(cfg)
     for i in range(cfg.n_layers):
         x = dense_block(x, _layer(params["layers"], i), cfg, pos,
                         windows[i], thetas[i], impl, schedule)
+    return x
+
+
+def zamba_hidden(params, x, cfg: ArchConfig, pos, impl, schedule):
+    n_attn, per_group, grouped, n_mamba = _zamba_layout(cfg)
+    mam, shared = params["layers"], params["shared_attn"]
+    for g in range(n_attn):
+        for j in range(g * per_group, (g + 1) * per_group):
+            x = mamba_block(x, _layer(mam, j), cfg)
+        x = shared_attn_block(x, shared, cfg, pos, impl, schedule)
+    for j in range(grouped, n_mamba):
+        x = mamba_block(x, _layer(mam, j), cfg)
+    return x
+
+
+# ------------------------------------------------------------------ whisper
+
+def _enc_pad(cfg: ArchConfig) -> int:
+    es = cfg.encdec.enc_seq
+    return -(-es // BLOCK) * BLOCK if es >= BLOCK else es
+
+
+def _pad_enc(enc: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    pad = _enc_pad(cfg) - enc.shape[1]
+    return torch.nn.functional.pad(enc, (0, 0, 0, pad)) if pad else enc
+
+
+def whisper_encode(params, frames, cfg: ArchConfig, impl="auto",
+                   schedule="dense") -> torch.Tensor:
+    """frames: (B, enc_seq, d) pre-embedded (the conv frontend is a stub,
+    as in the reference)."""
+    dev, dt = _device(params), L.cdt(cfg)
+    frames = _tensor(frames, dev)
+    b, es, d = frames.shape
+    x = frames.to(dt) + sinusoid_pos(es, d, dev)[None].to(dt)
+    x = _pad_enc(x, cfg)
+    pos = torch.arange(x.shape[1], dtype=torch.int32,
+                       device=dev)[None].expand(b, x.shape[1])
+    for i in range(cfg.encdec.enc_layers):
+        lp = _layer(params["enc_layers"], i)
+        h = L.norm(x, lp["ln1"], cfg)
+        x = x + attention_full(h, lp["attn"], cfg, pos, 0, cfg.rope_theta,
+                               impl=impl, schedule=schedule, causal=False,
+                               kv_valid=es)
+        h = L.norm(x, lp["ln2"], cfg)
+        x = x + L.mlp(h, lp["mlp"], cfg)
+    x = L.norm(x, params["enc_final_norm"], cfg)
+    return x[:, :es]
+
+
+def _whisper_dec_embed(params, tokens, cfg: ArchConfig):
+    x = _embed_stream(params, tokens, cfg, None)
+    b, s, _ = x.shape
+    x = x + sinusoid_pos(s, cfg.d_model, x.device)[None].to(x.dtype)
+    pos = torch.arange(s, dtype=torch.int32, device=x.device)[None] \
+        .expand(b, s)
+    return x, pos
+
+
+def whisper_decoder_hidden(params, tokens, enc, cfg: ArchConfig,
+                           impl="auto", schedule="dense") -> torch.Tensor:
+    x, pos = _whisper_dec_embed(params, tokens, cfg)
+    es = enc.shape[1]
+    enc_p = _pad_enc(enc, cfg)
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = L.norm(x, lp["ln1"], cfg)
+        x = x + attention_full(h, lp["attn"], cfg, pos, 0, cfg.rope_theta,
+                               impl=impl, schedule=schedule)
+        h = L.norm(x, lp["ln2"], cfg)
+        x = x + attention_full(h, lp["cross"], cfg, pos, 0, cfg.rope_theta,
+                               impl=impl, schedule=schedule, kv_x=enc_p,
+                               kv_valid=es)
+        h = L.norm(x, lp["ln3"], cfg)
+        x = x + L.mlp(h, lp["mlp"], cfg)
     return x
 
 
@@ -240,17 +405,62 @@ def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
 def decode_step(params, caches, token, cache_len: int, cfg: ArchConfig,
                 enc=None):
     """One-token decode. token: (B, 1) int32; cache_len: the new token's
-    position.
+    position.  ``enc`` is unused (whisper's cross K/V are in the caches),
+    as in the reference.
 
-    Returns (logits (B, V) f32, caches); the caches are the ones passed
-    in, written in place at the new token's slot.
+    Returns (logits (B, V) f32, caches): attention caches are the ones
+    passed in, written in place at the new token's slot; SSM states
+    (``wkv``, ``att_x``, ``ffn_x``, ``ssd``, ``conv``) are new tensors.
     """
-    check_family(cfg)
     cache_len = int(cache_len)
     x = L.embed_tokens(_tensor(token, _device(params), torch.int32),
                        params["embed"], cfg)
     b = x.shape[0]
     posb = torch.full((b,), cache_len, dtype=torch.int32, device=x.device)
+    if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
+        states = []
+        for i in range(cfg.n_layers):
+            x, st = rwkv_block(x, _layer(params["layers"], i), cfg,
+                               prev=(caches["wkv"][i], caches["att_x"][i],
+                                     caches["ffn_x"][i]))
+            states.append(st)
+        caches = {k: torch.stack([st[j] for st in states])
+                  for j, k in enumerate(("wkv", "att_x", "ffn_x"))}
+    elif cfg.family == "ssm" and cfg.ssm.kind == "mamba2":
+        states = []
+        for i in range(cfg.n_layers):
+            x, st = _mamba_decode_block(x, _layer(params["layers"], i), cfg,
+                                        caches["ssd"][i], caches["conv"][i])
+            states.append(st)
+        caches = {k: torch.stack([st[k] for st in states])
+                  for k in ("ssd", "conv")}
+    elif cfg.family == "hybrid":
+        x, caches = _zamba_decode(params, caches, x, posb, cache_len, cfg)
+    elif cfg.family == "audio":
+        # absolute (sinusoidal) positions: add the row at position cache_len
+        x = x + sinusoid_row(cache_len, cfg.d_model,
+                             x.device)[None, None].to(x.dtype)
+        for i in range(cfg.n_layers):
+            lp = _layer(params["layers"], i)
+            h = L.norm(x, lp["ln1"], cfg)
+            a, _, _ = L.attention_decode(h, lp["attn"], cfg,
+                                         caches["self_k"][i],
+                                         caches["self_v"][i], posb,
+                                         cache_len)
+            x = x + a
+            h = L.norm(x, lp["ln2"], cfg)
+            x = x + L.cross_attention_decode(h, lp["cross"], cfg,
+                                             caches["cross_k"][i],
+                                             caches["cross_v"][i])
+            h = L.norm(x, lp["ln3"], cfg)
+            x = x + L.mlp(h, lp["mlp"], cfg)
+    else:
+        x = _dense_decode(params, caches, x, posb, cache_len, cfg)
+    x = L.norm(x, params["final_norm"], cfg)
+    return L.lm_logits(x, params, cfg)[:, 0], caches
+
+
+def _dense_decode(params, caches, x, posb, cache_len: int, cfg: ArchConfig):
     windows, thetas = _layer_meta(cfg)
     mixed = any(w > 0 for w in windows)
     li = gi = 0
@@ -277,8 +487,34 @@ def decode_step(params, caches, token, cache_len: int, cfg: ArchConfig,
                 h, lp["attn"], cfg, caches["k"][i], caches["v"][i], posb,
                 cache_len, window=0, theta=thetas[i], **scales)
         x = _block_tail(x, a, lp, cfg)
-    x = L.norm(x, params["final_norm"], cfg)
-    return L.lm_logits(x, params, cfg)[:, 0], caches
+    return x
+
+
+def _zamba_decode(params, caches, x, posb, cache_len: int, cfg: ArchConfig):
+    n_attn, per_group, grouped, n_mamba = _zamba_layout(cfg)
+    mam, shared = params["layers"], params["shared_attn"]
+
+    def mamba(x, j):
+        x, st = _mamba_decode_block(x, _layer(mam, j), cfg,
+                                    caches["ssd"][j], caches["conv"][j])
+        states.append(st)
+        return x
+
+    states: List[Dict[str, torch.Tensor]] = []
+    for g in range(n_attn):
+        for j in range(g * per_group, (g + 1) * per_group):
+            x = mamba(x, j)
+        h = L.norm(x, shared["ln1"], cfg)
+        a, _, _ = L.attention_decode(h, shared["attn"], cfg,
+                                     caches["attn_k"][g],
+                                     caches["attn_v"][g], posb, cache_len)
+        x = _shared_tail(x, a, shared, cfg)
+    for j in range(grouped, n_mamba):
+        x = mamba(x, j)
+    new = dict(caches)
+    for k in ("ssd", "conv"):
+        new[k] = torch.stack([st[k] for st in states])
+    return x, new
 
 
 # ------------------------------------------------------------- prefill step
@@ -290,9 +526,31 @@ def prefill_step(params, tokens, cfg: ArchConfig, *, frames=None,
     Returns (last-position logits (B, V), caches covering the stream:
     a VLM's patches and then the S tokens).
     """
-    check_family(cfg)
-    x, caches = _dense_prefill(params, tokens, cfg, pos, patches, impl,
-                               schedule)
+    if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
+        x = _embed_stream(params, tokens, cfg, None)
+        states = []
+        for i in range(cfg.n_layers):
+            x, st = rwkv_block(x, _layer(params["layers"], i), cfg)
+            states.append(st)
+        caches = {k: torch.stack([st[j] for st in states])
+                  for j, k in enumerate(("wkv", "att_x", "ffn_x"))}
+    elif cfg.family == "ssm" and cfg.ssm.kind == "mamba2":
+        x = _embed_stream(params, tokens, cfg, None)
+        states = []
+        for i in range(cfg.n_layers):
+            x, st = _mamba_prefill_block(x, _layer(params["layers"], i), cfg)
+            states.append(st)
+        caches = {k: torch.stack([st[k] for st in states])
+                  for k in ("ssd", "conv")}
+    elif cfg.family == "audio":
+        enc = whisper_encode(params, frames, cfg, impl, schedule)
+        x, caches = _whisper_prefill_dec(params, tokens, enc, cfg, impl,
+                                         schedule)
+    elif cfg.family == "hybrid":
+        x, caches = _zamba_prefill(params, tokens, cfg, pos, impl, schedule)
+    else:
+        x, caches = _dense_prefill(params, tokens, cfg, pos, patches, impl,
+                                   schedule)
     x = L.norm(x, params["final_norm"], cfg)
     return L.lm_logits(x[:, -1:], params, cfg)[:, 0], caches
 
@@ -353,3 +611,60 @@ def _dense_prefill(params, tokens, cfg, pos, patches, impl, schedule):
     return x, {"local_k": kc[local][:, :, ring],
                "local_v": vc[local][:, :, ring],
                "global_k": kc[glob], "global_v": vc[glob]}
+
+
+def _zamba_prefill(params, tokens, cfg, pos, impl, schedule):
+    n_attn, per_group, grouped, n_mamba = _zamba_layout(cfg)
+    x = _embed_stream(params, tokens, cfg, None)
+    b, s, _ = x.shape
+    pos_arr = _positions(pos, b, s, x.device)
+    mam, shared = params["layers"], params["shared_attn"]
+    states, ks, vs = [], [], []
+    for g in range(n_attn):
+        for j in range(g * per_group, (g + 1) * per_group):
+            x, st = _mamba_prefill_block(x, _layer(mam, j), cfg)
+            states.append(st)
+        h = L.norm(x, shared["ln1"], cfg)
+        a, kk, vv = _attn_with_cache(h, shared["attn"], cfg, pos_arr, 0,
+                                     cfg.rope_theta, impl, schedule)
+        x = _shared_tail(x, a, shared, cfg)
+        ks.append(kk)
+        vs.append(vv)
+    for j in range(grouped, n_mamba):
+        x, st = _mamba_prefill_block(x, _layer(mam, j), cfg)
+        states.append(st)
+    caches = {k: torch.stack([st[k] for st in states])
+              for k in ("ssd", "conv")}
+    # fewer layers than ``hybrid_attn_every``: no group, empty caches
+    empty = torch.zeros((0, b, s, cfg.n_kv_heads, cfg.hd),
+                        dtype=torch.bfloat16, device=x.device)
+    caches["attn_k"] = torch.stack(ks) if ks else empty
+    caches["attn_v"] = torch.stack(vs) if vs else empty
+    return x, caches
+
+
+def _whisper_prefill_dec(params, tokens, enc, cfg, impl, schedule):
+    x, pos_arr = _whisper_dec_embed(params, tokens, cfg)
+    es = enc.shape[1]
+    enc_p = _pad_enc(enc, cfg)
+    sk, sv, ck, cv = [], [], [], []
+    for i in range(cfg.n_layers):
+        lp = _layer(params["layers"], i)
+        h = L.norm(x, lp["ln1"], cfg)
+        a, kk, vv = _attn_with_cache(h, lp["attn"], cfg, pos_arr, 0,
+                                     cfg.rope_theta, impl, schedule)
+        x = x + a
+        h = L.norm(x, lp["ln2"], cfg)
+        x = x + attention_full(h, lp["cross"], cfg, pos_arr, 0,
+                               cfg.rope_theta, impl=impl, schedule=schedule,
+                               kv_x=enc_p, kv_valid=es)
+        ck.append(L._split_heads(L.dot(enc, lp["cross"]["wk"], cfg),
+                                 cfg.n_kv_heads).to(torch.bfloat16))
+        cv.append(L._split_heads(L.dot(enc, lp["cross"]["wv"], cfg),
+                                 cfg.n_kv_heads).to(torch.bfloat16))
+        h = L.norm(x, lp["ln3"], cfg)
+        x = x + L.mlp(h, lp["mlp"], cfg)
+        sk.append(kk)
+        sv.append(vv)
+    return x, {"self_k": torch.stack(sk), "self_v": torch.stack(sv),
+               "cross_k": torch.stack(ck), "cross_v": torch.stack(cv)}

@@ -1,7 +1,7 @@
 """Frontier primitives of the sorted-pool search.
 
-The PyTorch counterparts of ``sort_by_key`` and ``merge_sorted_topk`` in
-``repro/parallel/ops.py``, batched over leading axes: keys are
+The PyTorch counterparts of ``sort_by_key``, ``top_k_sorted`` (the MoE
+router's top-k) and ``merge_sorted_topk`` in ``repro/parallel/ops.py``, batched over leading axes: keys are
 ``(*lead, n)`` and every payload leaf is ``(*lead, n, *rest)``.  The
 search loop keeps its pool key-sorted; pop is a slice, and the merge folds
 the freshly sorted children in with two rank passes (binary searches, or
@@ -41,6 +41,15 @@ def sort_by_key(keys: torch.Tensor, payload: Any) -> Tuple[torch.Tensor, Any]:
     payload pytree whose leaves share the keys' leading axes."""
     keys_sorted, order = torch.sort(keys, dim=-1, stable=True)
     return keys_sorted, tree_map(lambda x: _gather_rows(x, order), payload)
+
+
+def top_k_sorted(x: torch.Tensor, k: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Largest-k along the last axis from a stable descending sort, so a
+    tie goes to the lower index, as the reference's one variadic sort
+    does (``torch.topk`` leaves the order of ties unspecified)."""
+    neg, order = torch.sort(-x, dim=-1, stable=True)
+    return -neg[..., :k], order[..., :k]
 
 
 def merge_sorted_topk(

@@ -1,9 +1,11 @@
 """LM serving: prefill, then token-by-token greedy decode against KV caches.
 
-The port of the reference's ``repro/serving/lm_decode.py`` for the dense
-stack (``repro_torch.models.transformer``).  ``prefill_step`` builds the
-caches over the prompt's stream, :func:`_grow_caches` right-sizes them
-for the tokens to come, and each ``decode_step`` writes its token's row
+The port of the reference's ``repro/serving/lm_decode.py`` for every
+family of ``repro_torch.models.transformer``.  ``prefill_step`` builds
+the decode state over the prompt's stream (an audio prompt's encoder runs
+on ``frames`` there), :func:`_grow_caches` right-sizes the attention
+caches for the tokens to come (the O(1) SSM states and whisper's cross
+K/V keep their shapes), and each ``decode_step`` writes its token's row
 in place.
 
 A VLM prompt's stream is its ``num_patches`` patch embeddings and then
@@ -42,8 +44,8 @@ def generate(params, prompt, cfg: ArchConfig, max_new: int = 16,
     """Greedy generation. prompt: (B, S) int32. Returns (B, max_new) int32.
 
     ``params`` must lie on ``device`` (default the card, which raises
-    without a visible GPU).  ``frames`` (encoder input) belongs to the
-    audio family, which is not ported: ``prefill_step`` refuses it.
+    without a visible GPU).  ``frames`` (B, enc_seq, d) is the audio
+    family's encoder input; ``patches`` a VLM's patch embeddings.
     """
     dev = resolve_device(device)
     have = T._device(params)
@@ -72,7 +74,8 @@ def generate(params, prompt, cfg: ArchConfig, max_new: int = 16,
 def _grow_caches(caches: Dict[str, torch.Tensor], cfg: ArchConfig, b: int,
                  s: int, total: int) -> Dict[str, torch.Tensor]:
     """Caches of ``cache_shapes(cfg, b, total)`` holding the prefilled
-    ``[0, s)`` stream (a ring buffer already at its size is kept)."""
+    ``[0, s)`` stream (an entry already at its size, such as a ring
+    buffer, an SSM state or a cross cache, is kept)."""
     want = T.cache_shapes(cfg, b, total)
     out = {}
     for k, v in caches.items():

@@ -103,6 +103,7 @@ def test_port_sources_have_no_jax_or_reference_imports():
             "src/repro_torch/models/config.py",
             "src/repro_torch/models/layers.py",
             "src/repro_torch/models/flash.py",
+            "src/repro_torch/models/moe.py",
             "src/repro_torch/models/params.py",
             "src/repro_torch/models/ssm.py",
             "src/repro_torch/models/transformer.py",

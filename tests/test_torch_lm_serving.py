@@ -192,6 +192,90 @@ def test_generate_defaults_to_the_card(monkeypatch):
         generate(pp, prompt, cfg, max_new=2, device="cuda")
 
 
+OTHER = ["moonshot-v1-16b-a3b", "qwen2-moe-a2.7b", "rwkv6-3b",
+         "whisper-large-v3", "zamba2-7b"]
+
+
+def other_cfg(arch):
+    """f32 compute; drop-free MoE capacity (``tests/test_archs.py``'s);
+    zamba2 at 4 layers, so one group (two mamba layers and the shared
+    block) and one mamba layer after it; ``mamba2`` is a constructed
+    pure-``ssm`` stack (no shipped arch uses it)."""
+    if arch == "mamba2":
+        return dataclasses.replace(small_cfg("zamba2-7b", "float32"),
+                                   family="ssm", hybrid_attn_every=0)
+    cfg = small_cfg(arch, "float32")
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, n_layers=4)
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(
+            cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=16.0))
+    return cfg
+
+
+@pytest.mark.parametrize("arch", OTHER + ["mamba2"])
+def test_generate_other_families_matches_the_reference(arch):
+    """``tests/test_serving.py::test_lm_generate_ssm_runs`` in reduced
+    form for every family beyond the dense stack: ``generate`` (B = 2,
+    S = 10, 5 new tokens, f32) gives the reference's tokens; whisper's
+    encoder runs on frames made from a seed (normal x 0.02)."""
+    cfg = other_cfg(arch)
+    rp, pp = weights(cfg)
+    rng = np.random.default_rng(12)
+    prompt = rng.integers(0, cfg.vocab, (2, 10)).astype(np.int32)
+    frames = None
+    if cfg.family == "audio":
+        frames = (rng.normal(size=(2, cfg.encdec.enc_seq, cfg.d_model))
+                  * 0.02).astype(np.float32)
+    want = np.asarray(ref_generate(
+        rp, prompt, cfg, max_new=5, impl="naive",
+        frames=None if frames is None else jnp.asarray(frames)))
+    got = generate(pp, prompt, port_cfg(cfg), max_new=5, frames=frames,
+                   impl="naive", device="cpu")
+    assert got.shape == (2, 5) and got.dtype == np.int32
+    assert np.array_equal(got, want)
+
+
+def test_grow_caches_keeps_states_and_cross_caches():
+    """``_grow_caches`` leaves the O(1) SSM states and whisper's cross
+    caches as they are and grows the self-attention caches, as the
+    reference's does."""
+    for arch in ("rwkv6-3b", "zamba2-7b", "whisper-large-v3"):
+        cfg = other_cfg(arch)
+        pc = port_cfg(cfg)
+        _, pp = weights(cfg)
+        prompt = np.zeros((2, 6), np.int32)
+        frames = (np.zeros((2, cfg.encdec.enc_seq, cfg.d_model), np.float32)
+                  if cfg.family == "audio" else None)
+        _, caches = PT.prefill_step(pp, prompt, pc, frames=frames,
+                                    impl="naive")
+        grown = _grow_caches(caches, pc, 2, 6, 10)
+        want = PT.cache_shapes(pc, 2, 10)
+        assert {k: tuple(v.shape) for k, v in grown.items()} == \
+            {k: s for k, (s, _) in want.items()}
+        for key, v in caches.items():
+            if tuple(v.shape) == want[key][0]:
+                assert torch.equal(grown[key], v), key
+            else:
+                assert torch.equal(grown[key][:, :, :6], v), key
+                assert not grown[key][:, :, 6:].any(), key
+
+
+@pytest.mark.parametrize("arch", OTHER)
+def test_launcher_serves_the_other_families_on_the_cpu(arch):
+    """``--mode lm --device cpu`` for the moe, ssm, hybrid and audio
+    archs (whisper with zero frames, as the reference's launcher)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--mode", "lm",
+         "--arch", arch, "--device", "cpu", "--batch", "2",
+         "--prompt-len", "20", "--max-new", "3"], env=env, cwd=ROOT,
+        capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert f"arch={arch} (reduced)" in res.stdout
+    assert "generated (2, 3)" in res.stdout, res.stdout
+
+
 def test_launcher_serves_every_dense_path_arch_on_the_cpu():
     """``--mode lm --device cpu`` for qwen2-vl-2b (patches prepended) and
     gemma3-1b (ring buffers), each with 3 prompts of 40 tokens, which
