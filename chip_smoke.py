@@ -7,6 +7,7 @@ toolkit (``nvcc``):
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --lm-only       # the [lm] phase only
+    python3 chip_smoke.py --train-only    # the [train] phase only
 
 The environment variables ``REPRO_GED_SHARED_CACHE_DIR``,
 ``REPRO_GED_COMPILE_CACHE_DIR`` and ``REPRO_GED_FAULT_INJECT`` are cleared
@@ -162,7 +163,29 @@ nothing falls back to the CPU):
     constructed pure-mamba2 stack among them) on the card against the
     port on the CPU with the same weights at f32 (logits and caches,
     ``generate``'s tokens equal);
-14. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
+14. ``[train]``, LM training (no TPU kernel lies on it either: the
+    reference's ``optim/``, ``models/flash.py``'s custom VJP, ``moe.py``
+    and ``ssm.py`` are plain JAX): gemma3-1b at full width and depth
+    (792.9 M parameters, 12.69 GB of f32 params, grads and AdamW
+    moments), random weights from a seed, B = 8, S = 512, bf16 compute,
+    ``impl="naive"``, ``remat="full"``: 8 steps through
+    ``make_train_step`` and ``train_loop`` with the loss logged each
+    step (step ms, tokens/s, peak memory), one blocking
+    ``CheckpointManager.save`` of the whole state (params and moments,
+    9.51 GB; the loop's last step) and one ``restore`` compared leaf by
+    leaf bit for bit, and one step under ``torch.profiler`` (launches,
+    device ms, busy share), then its loss-and-gradients and its
+    ``adamw_update`` apart; qwen3-8b at full width with 8 of its 36
+    layers (16 bytes a parameter is 131 GB at full depth; 8 layers are
+    44.6 GB), 3 steps; one qwen3-8b
+    layer at S = 2048, f32, every gradient through the flash backward
+    against autograd through the naive attention; reduced qwen3-8b
+    through ``train_loop`` clean and with faults at steps 4 and 8,
+    losses and parameters bit-equal; one step of every arch's reduced
+    config on the card against the CPU (``TRAIN_TOL``); and
+    ``python -m repro_torch.launch.train`` (no ``--device``) at reduced
+    scale in a child process;
+15. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
     ``"auto"`` run, the fused store's, the services' and the mesh
     ``"auto"`` run's), the card's name and power limit, and as the last
     line ``{"ok": true, "device": {...}}``.
@@ -2534,6 +2557,424 @@ def lm_phase(smi):
 
 
 
+# -------------------------------------------------------------- [train]
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 8   # gemma3-1b, full size
+QWEN_TRAIN_LAYERS, QWEN_TRAIN_STEPS = 8, 3        # qwen3-8b, full width
+# the card-vs-CPU step: loss, and the first moments (linear in the
+# gradient) relative to each leaf's largest; a parameter whose moment is
+# above 1e-4 of its leaf's largest moves by about lr * sign(g) and must
+# agree within 1e-6, the rest (gradients within float noise of 0) may
+# move either way and are counted, at most 0.1% of all
+TRAIN_TOL = dict(loss=1e-5, moment=1e-4, sure=1e-4, param=1e-6,
+                 flipped=1e-3)
+
+
+def token_batch(cfg, b, s, rng, device):
+    """A training batch: tokens and labels, a VLM's patches and whisper's
+    frames as normal x 0.02 (f32), all on ``device``."""
+    import torch
+    batch = {"tokens": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32),
+             "labels": rng.integers(0, cfg.vocab, (b, s)).astype(np.int32)}
+    if cfg.vlm is not None:
+        batch["patches"] = (rng.normal(size=(b, cfg.vlm.num_patches,
+                                             cfg.d_model)) * 0.02
+                            ).astype(np.float32)
+    if cfg.family == "audio":
+        batch["frames"] = (rng.normal(size=(b, cfg.encdec.enc_seq,
+                                            cfg.d_model)) * 0.02
+                           ).astype(np.float32)
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def profile_device(fn):
+    """Launches, device ms and device-busy share of one call of ``fn``
+    from ``torch.profiler``; returns (row, what ``fn`` returned)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"launches": "not measured",
+                "device_busy_share": "not measured"}, out
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        cnt, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (cnt + 1, us + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return {"launches": len(kernels), "device_ms": busy_us / 1e3,
+            "profiled_wall_ms": wall * 1e3,
+            "device_busy_share_profiled": busy_us * 1e-6 / wall,
+            "top_kernels_by_device_time": [
+                [name[:60], cnt, us / 1e3] for name, (cnt, us) in top]}, out
+
+
+def profile_train(cfg, step, opt_cfg, state, batch):
+    """One whole train step under the profiler, then its two parts on
+    the state it left: the loss with its gradients
+    (``_value_and_grad``), and ``adamw_update``.  Returns (rows, state
+    after the whole step and the second update)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import adamw_update, cosine_schedule
+    rows = {}
+    rows["step"], (params, opt, _) = profile_device(
+        lambda: step(*state, batch))
+    rows["loss_and_grads"], (_, grads) = profile_device(
+        lambda: T._value_and_grad(params, batch, cfg, "naive", "dense"))
+    sched = cosine_schedule(opt_cfg.warmup, opt_cfg.total_steps,
+                            opt_cfg.min_lr_frac)
+    rows["adamw_update"], (params, opt, _) = profile_device(
+        lambda: adamw_update(params, grads, opt, opt_cfg, sched))
+    return rows, (params, opt)
+
+
+def gemma_train(rng):
+    """gemma3-1b at full width and depth: TRAIN_STEPS steps through
+    ``make_train_step`` and ``train_loop`` (the loss logged each step),
+    one blocking ``save`` of the whole state (the loop's last step) and
+    one ``restore``, every leaf bit-equal, then one step and its two
+    parts under the profiler."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count, \
+        tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import train_loop
+    cfg = get_arch("gemma3-1b")
+    free_card()
+    row = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "params": param_count(cfg), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "remat": cfg.remat,
+           "compute_dtype": cfg.compute_dtype, "impl": "naive"}
+    params = init_params(cfg, seed=SEED + 30, device="cuda")
+    state = (params, adamw_init(params))
+    row["state_bytes"] = sum(t.numel() * t.element_size()
+                             for part in (state[0], state[1])
+                             for _, t in tree_leaves(part))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup=2, total_steps=TRAIN_STEPS)
+    step = T.make_train_step(cfg, opt_cfg, impl="naive")
+
+    def step_fn(st, batch):
+        p, o, m = step(*st, {"tokens": torch.as_tensor(batch[0],
+                                                       device="cuda"),
+                             "labels": torch.as_tensor(batch[1],
+                                                       device="cuda")})
+        return (p, o), m
+
+    marks, losses = [], []
+
+    def on_metrics(s, m):
+        marks.append(time.perf_counter())     # float(loss) synchronized
+        losses.append(m["loss"])
+        log(f"[train] gemma3-1b step {s}  loss {m['loss']:.4f}  gnorm "
+            f"{m['grad_norm']:.3f}")
+
+    ckdir = Path(tempfile.mkdtemp(prefix="repro_torch_train_"))
+    row["disk_free_gb_before_save"] = shutil.disk_usage(ckdir).free / 1e9
+    try:
+        ckpt = CheckpointManager(ckdir, keep_last_k=1, async_save=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, hist = train_loop(
+            step_fn, state,
+            lambda s: TokenPipeline(SEED, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab,
+                                    start_step=s),
+            ckpt, total_steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS,
+            log_every=1, on_metrics=on_metrics)
+        t_end = time.perf_counter()
+        row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        assert len(losses) == TRAIN_STEPS and all(
+            np.isfinite(x) for x in losses), losses
+        steps_ms = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+        row["losses"] = losses
+        row["first_step_ms"] = steps_ms[0]
+        row["step_ms_median"] = statistics.median(steps_ms[1:])
+        row["step_ms_min_max"] = [min(steps_ms[1:]), max(steps_ms[1:])]
+        row["tokens_per_s"] = TRAIN_BATCH * TRAIN_SEQ / (
+            row["step_ms_median"] / 1e3)
+        # the loop's last act is one blocking save of the whole state
+        row["checkpoint_save_s"] = t_end - marks[-1]
+        row["checkpoint_bytes"] = sum(f.stat().st_size
+                                      for f in ckdir.rglob("*.npz"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_step, back, _ = ckpt.restore(state)
+        torch.cuda.synchronize()
+        row["checkpoint_restore_s"] = time.perf_counter() - t0
+        assert got_step == TRAIN_STEPS
+        for (path, a), (_, b) in zip(
+                tree_leaves({"p": state[0], "o": state[1]}),
+                tree_leaves({"p": back[0], "o": back[1]})):
+            assert a.dtype == b.dtype and a.device == b.device, path
+            assert torch.equal(a, b), f"restored leaf {path} differs"
+        row["restored_leaves_bit_equal"] = True
+        del back
+    finally:
+        shutil.rmtree(ckdir, ignore_errors=True)
+    batch = token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, rng, "cuda")
+    prof, state = profile_train(cfg, step, opt_cfg, state, batch)
+    if "device_ms" in prof["step"]:
+        prof["step"]["device_share_of_unprofiled_step"] = (
+            prof["step"]["device_ms"] / row["step_ms_median"])
+    row["profile"] = prof
+    del state, params, batch
+    free_card()
+    return row
+
+
+def qwen_train(rng):
+    """qwen3-8b at full width with QWEN_TRAIN_LAYERS of its 36 layers
+    (16 bytes a parameter is 131 GB at full depth): QWEN_TRAIN_STEPS
+    steps, each ended by a synchronize."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.optim import AdamWConfig, adamw_init
+    cfg = dataclasses.replace(get_arch("qwen3-8b"),
+                              n_layers=QWEN_TRAIN_LAYERS)
+    free_card()
+    row = {"arch": cfg.name, "layers": cfg.n_layers,
+           "full_depth_layers": get_arch("qwen3-8b").n_layers,
+           "params": param_count(cfg), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "remat": cfg.remat}
+    params = init_params(cfg, seed=SEED + 31, device="cuda")
+    state = (params, adamw_init(params))
+    step = T.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup=1,
+                                              total_steps=10),
+                             impl="naive")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for _ in range(QWEN_TRAIN_STEPS):
+        batch = token_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, rng, "cuda")
+        t0 = time.perf_counter()
+        p, o, m = step(*state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        state = (p, o)
+    assert all(np.isfinite(x) for x in losses), losses
+    row.update(losses=losses, step_ms=times,
+               step_ms_after_first_median=statistics.median(times[1:]),
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+               / (statistics.median(times[1:]) / 1e3),
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del state, params, p, o
+    free_card()
+    return row
+
+
+def flash_backward_check(rng):
+    """One qwen3-8b layer (and the embedding and head) at S = 2048, f32
+    compute: every parameter's gradient through ``impl="flash"`` (the
+    blocked backward) against autograd through ``impl="naive"``, within
+    2e-4 of each leaf's largest gradient; the ms of each."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_leaves
+    cfg = dataclasses.replace(get_arch("qwen3-8b"), n_layers=1,
+                              compute_dtype="float32", remat="none")
+    free_card()
+    params = init_params(cfg, seed=SEED + 32, device="cuda")
+    batch = token_batch(cfg, 1, LONG_PREFILL, rng, "cuda")
+    res = {}
+    for impl in ("naive", "flash", "naive", "flash"):    # warm, then timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res[impl] = T._value_and_grad(params, batch, cfg, impl, "dense")
+        torch.cuda.synchronize()
+        res[impl + "_ms"] = (time.perf_counter() - t0) * 1e3
+    (ln, gn), (lf, gf) = res["naive"], res["flash"]
+    worst = 0.0
+    for (path, a), (_, b) in zip(tree_leaves(gf), tree_leaves(gn)):
+        scale = float(b.abs().max())
+        rel = float((a - b).abs().max()) / scale if scale else 0.0
+        assert rel <= 2e-4, (path, rel)
+        worst = max(worst, rel)
+    row = {"seq": LONG_PREFILL, "naive_ms": res["naive_ms"],
+           "flash_ms": res["flash_ms"],
+           "loss_diff": abs(float(lf) - float(ln)),
+           "grad_max_rel_diff": worst}
+    assert row["loss_diff"] <= 1e-4, row
+    del params, res, gn, gf
+    free_card()
+    return row
+
+
+def replay_check():
+    """Reduced qwen3-8b through ``train_loop`` on the card, clean and with
+    faults at steps 4 and 8 (checkpoints every 3): losses and final
+    parameters bit-equal."""
+    import torch
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline
+    from repro_torch.models import transformer as T
+    from repro_torch.models.config import reduced
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.runtime import FaultInjector, train_loop
+    cfg = reduced(get_arch("qwen3-8b"))
+    step = T.make_train_step(cfg, AdamWConfig(lr=1e-3, warmup=2,
+                                              total_steps=10), impl="naive")
+
+    def step_fn(st, batch):
+        p, o, m = step(*st, {"tokens": torch.as_tensor(batch[0],
+                                                       device="cuda"),
+                             "labels": torch.as_tensor(batch[1],
+                                                       device="cuda")})
+        return (p, o), m
+
+    runs = {}
+    for tag, faults in (("clean", []), ("faulted", [4, 8])):
+        params = init_params(cfg, seed=SEED, device="cuda")
+        with tempfile.TemporaryDirectory() as d:
+            (p, _), hist = train_loop(
+                step_fn, (params, adamw_init(params)),
+                lambda s: TokenPipeline(SEED, 4, 64, cfg.vocab,
+                                        start_step=s),
+                CheckpointManager(d, keep_last_k=2), total_steps=10,
+                ckpt_every=3, injector=FaultInjector(faults), log_every=1)
+        runs[tag] = (p, [h["loss"] for h in hist])
+    (pc, lc), (pf, lf) = runs["clean"], runs["faulted"]
+    assert lc == lf, ("losses differ after replay", lc, lf)
+    for (path, a), (_, b) in zip(tree_leaves(pc), tree_leaves(pf)):
+        assert torch.equal(a, b), f"replayed parameter {path} differs"
+    return {"steps": 10, "faults_at": [4, 8], "losses": lc,
+            "losses_bit_equal": True, "params_bit_equal": True}
+
+
+def reduced_train_configs():
+    """(tag, config) of the card-vs-CPU train step: every arch's reduced
+    config at f32 (zamba2 with 7 layers at ``hybrid_attn_every`` 6 so
+    its shared block trains; MoE at drop-free capacity)."""
+    from repro_torch.configs import get_arch, list_archs
+    from repro_torch.models.config import reduced
+    out = []
+    for name in list_archs():
+        base = get_arch(name)
+        layers = 3 if base.window_pattern else \
+            7 if base.hybrid_attn_every else 2
+        over = {"hybrid_attn_every": 6} if base.hybrid_attn_every else {}
+        cfg = reduced(base, layers=layers)
+        if cfg.moe is not None:
+            over["moe"] = dataclasses.replace(cfg.moe, capacity_factor=16.0)
+        out.append((name, dataclasses.replace(
+            cfg, remat="none", compute_dtype="float32", **over)))
+    return out
+
+
+def reduced_train_check(rng):
+    """One train step of every arch's reduced config on the card and on
+    the CPU from the same weights and batch (TRAIN_TOL)."""
+    import torch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, params_from_numpy, \
+        tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    rows = {}
+    for tag, cfg in reduced_train_configs():
+        cpu = init_params(cfg, seed=SEED, device="cpu")
+        card = params_from_numpy(cpu, device="cuda")
+        batch = token_batch(cfg, 2, 16, rng, "cpu")
+        out = {}
+        for dev, p in (("cuda", card), ("cpu", cpu)):
+            step = T.make_train_step(cfg, AdamWConfig(lr=1e-3),
+                                     impl="naive")
+            out[dev] = step(p, adamw_init(p),
+                            {k: v.to(dev) for k, v in batch.items()})
+        (pg, og, mg), (pc, oc, mc) = out["cuda"], out["cpu"]
+        d = {"loss": abs(float(mg["loss"]) - float(mc["loss"]))}
+        assert d["loss"] <= TRAIN_TOL["loss"], (tag, d)
+        worst_m = 0.0
+        flipped = total = 0
+        params_g = dict(tree_leaves(pg))
+        params_c = dict(tree_leaves(pc))
+        for path, m_g in tree_leaves(og["m"]):
+            m_c = dict(tree_leaves(oc["m"]))[path]
+            scale = float(m_c.abs().max())
+            if not scale:
+                continue
+            diff = (m_g.cpu() - m_c).abs()
+            worst_m = max(worst_m, float(diff.max()) / scale)
+            sure = m_c.abs() > TRAIN_TOL["sure"] * scale
+            pdiff = (params_g[path].cpu() - params_c[path]).abs()
+            if bool(sure.any()):
+                assert float(pdiff[sure].max()) <= TRAIN_TOL["param"], \
+                    (tag, path)
+            flipped += int((pdiff > TRAIN_TOL["param"]).sum())
+            total += pdiff.numel()
+        assert worst_m <= TRAIN_TOL["moment"], (tag, worst_m)
+        assert flipped <= TRAIN_TOL["flipped"] * total, (tag, flipped)
+        d.update(moment_max_rel_diff=worst_m, params_flipped=flipped)
+        rows[tag] = d
+    return rows
+
+
+def train_launcher_child():
+    """``python -m repro_torch.launch.train`` without ``--device`` (so on
+    the card) at reduced scale, in a child process."""
+    with tempfile.TemporaryDirectory() as d:
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             "qwen3-8b", "--scale", "reduced", "--steps", "20",
+             "--ckpt-dir", d], env=env, capture_output=True, text=True,
+            timeout=300, cwd=str(ROOT))
+        wall = time.perf_counter() - t0
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "done: 20 steps" in res.stdout, res.stdout
+    return {"wall_s": wall, "last_lines": res.stdout.strip().splitlines()[-3:]}
+
+
+def train_phase(smi):
+    """LM training on the card (no TPU kernel lies on this path):
+    gemma3-1b at full size (steps, tokens/s, launches, busy share, peak
+    memory, checkpoint save and restore; one step and its two parts
+    under the profiler), qwen3-8b at full width with 8
+    layers, the flash backward against naive autograd on one layer at
+    S = 2048, exact replay after faults, every arch's reduced config card
+    against CPU, and the launcher in a child process."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 40)
+    summ = {}
+    summ["gemma3_1b"] = gemma_train(rng)
+    log("[train] gemma3-1b: " + json.dumps(summ["gemma3_1b"]) + f" ({smi})")
+    summ["qwen3_8b_8_layers"] = qwen_train(rng)
+    log("[train] qwen3-8b, 8 of 36 layers: "
+        + json.dumps(summ["qwen3_8b_8_layers"]) + f" ({smi})")
+    summ["flash_backward_s2048"] = flash_backward_check(rng)
+    log("[train] qwen3-8b one layer, S=2048, flash vs naive backward: "
+        + json.dumps(summ["flash_backward_s2048"]) + f" ({smi})")
+    summ["exact_replay"] = replay_check()
+    log("[train] exact replay after faults: "
+        + json.dumps(summ["exact_replay"]))
+    summ["reduced_card_vs_cpu"] = reduced_train_check(rng)
+    log("[train] reduced configs, one step card vs CPU: "
+        + json.dumps(summ["reduced_card_vs_cpu"]))
+    summ["launcher"] = train_launcher_child()
+    log("[train] launcher: " + json.dumps(summ["launcher"]))
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[train] summary: " + json.dumps(summ) + f" ({smi})")
+    return summ
+
+
 # ----------------------------------------------------------------- main
 
 def main(argv) -> int:
@@ -2564,6 +3005,13 @@ def main(argv) -> int:
     dev = resolve_device("cuda")
     if "--lm-only" in argv:           # iterate on the LM phase alone
         lm_phase(smi)
+        log(f"[device] {smi}")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+    if "--train-only" in argv:        # iterate on the training phase alone
+        train_phase(smi)
         log(f"[device] {smi}")
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2697,6 +3145,9 @@ def main(argv) -> int:
     # ---- the LM serving path: every family, two archs at full width ----
     lm_summ = lm_phase(smi)
 
+    # ---- LM training: gemma3-1b at full size, qwen3-8b at full width ---
+    train_summ = train_phase(smi)
+
     phase_launches = {"auto": launches, "store": store_launches,
                       "serving": serving_launches,
                       "sharded": sharded_launches}
@@ -2709,6 +3160,7 @@ def main(argv) -> int:
                     "cache_path": cache_summ, "faults_path": faults_summ,
                     "store_path": store_summ, "serving_path": serving_summ,
                     "sharded_path": sharded_summ, "lm_path": lm_summ,
+                    "train_path": train_summ,
                     "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))

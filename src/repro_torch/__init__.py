@@ -14,10 +14,13 @@ as copies.
 Entry points take ``device=`` and default to the card; without a visible
 GPU they raise and ask for ``device="cpu"`` instead of quietly running on
 the CPU.  ``serving`` holds the GED services and LM decoding
-(``generate``), ``launch`` their entry point (``python -m
-repro_torch.launch.serve --mode ged|lm``); ``configs`` and ``models`` the
-LM architectures and the dense stack they run on.
+(``generate``), ``launch`` their entry points (``python -m
+repro_torch.launch.serve --mode ged|lm``, ``python -m
+repro_torch.launch.train``); ``configs`` and ``models`` the LM
+architectures and the stacks they run on; ``optim``, ``checkpoint``,
+``runtime.loop`` and ``parallel.pipeline`` LM training.
 """
 
-__all__ = ["configs", "core", "data", "ged", "kernels", "launch", "models",
-           "parallel", "runtime", "serving", "store_io"]
+__all__ = ["checkpoint", "configs", "core", "data", "ged", "kernels",
+           "launch", "models", "optim", "parallel", "runtime", "serving",
+           "store_io"]

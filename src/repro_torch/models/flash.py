@@ -5,8 +5,13 @@ its docstring names a Pallas kernel (``repro/kernels/flash_attention.py``)
 that was never written, so no TPU kernel lies on this path and this module
 is plain PyTorch following the reference's tiling.  Attention is computed
 in (block_q x block_k) tiles with running (max, sum, acc) statistics in
-f32, so no (S, T) score matrix is ever materialised.  The reference's
-custom backward (recompute per tile) comes with the training slice.
+f32, so no (S, T) score matrix is ever materialised.  The backward is the
+reference's custom VJP (``_fwd_rule`` / ``_bwd_rule``) as a
+``torch.autograd.Function``: the forward also keeps the per-row
+log-sum-exp, and the backward recomputes each tile's scores from it
+instead of saving them, with f32 accumulation of ``dq`` / ``dk`` / ``dv``
+over the same tile pairs as the forward, so live memory stays
+O(S * block) in both directions.
 
 Two schedules:
 
@@ -53,24 +58,22 @@ def _pairs(nq: int, nk: int, causal: bool, bq: int, bk: int,
             if k * bk <= q_offset + q * bq + bq - 1]
 
 
-def flash_attention(q, k, v, causal: bool = True, schedule: str = "dense",
-                    block_q: int = 512, block_k: int = 512, window: int = 0,
-                    kv_valid: int = 10 ** 9, q_offset: int = 0
-                    ) -> torch.Tensor:
-    """q: (B,S,Hq,hd), k/v: (B,T,Hk,hd) -> (B,S,Hq,hd) in q's dtype.
-
-    S and T must be multiples of ``block_q`` and ``block_k``.
-    """
-    b, s, hq, hd = q.shape
-    t, hk = k.shape[1], k.shape[2]
+def _check(q, k, block_q, block_k, schedule):
+    s, t = q.shape[1], k.shape[1]
     if s % block_q or t % block_k:
         raise ValueError(f"sequence lengths ({s}, {t}) must be multiples "
                          f"of the blocks ({block_q}, {block_k})")
     if schedule not in ("dense", "tri"):
         raise ValueError(f"unknown schedule {schedule!r}")
+
+
+def _flash_fwd(q, k, v, causal, schedule, block_q, block_k, window,
+               kv_valid, q_offset):
+    """(out in q's dtype, the f32 output (B,Hk,G,S,hd), lse (B,Hk,G,S))."""
+    b, s, hq, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
     g = hq // hk
     scale = 1.0 / math.sqrt(hd)
-    window, kv_valid, q_offset = int(window), int(kv_valid), int(q_offset)
     # products of the inputs are exact in f32: upcasting gives the
     # reference's preferred_element_type=f32 contractions
     qf = q.reshape(b, s, hk, g, hd).movedim(1, 3).float()   # (B,Hk,G,S,hd)
@@ -100,8 +103,86 @@ def flash_attention(q, k, v, causal: bool = True, schedule: str = "dense",
         pv = torch.einsum("bkgqt,bktd->bkgqd", p, vf[:, :, ks])
         acc[..., qs, :] = acc[..., qs, :] * corr[..., None] + pv
         m[..., qs] = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]
-    return out.movedim(3, 1).reshape(b, s, hq, hd).to(q.dtype)
+    l_safe = torch.clamp(l, min=1e-30)
+    out = acc / l_safe[..., None]
+    out_std = out.movedim(3, 1).reshape(b, s, hq, hd).to(q.dtype)
+    return out_std, out, m + torch.log(l_safe)
+
+
+def _flash_bwd(q, k, v, out, lse, do, causal, schedule, block_q, block_k,
+               window, kv_valid, q_offset):
+    """The reference's ``_flash_bwd_impl``: (dq, dk, dv) in the inputs'
+    dtypes, each tile's probabilities recomputed from ``lse``."""
+    b, s, hq, hd = q.shape
+    t, hk = k.shape[1], k.shape[2]
+    g = hq // hk
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.reshape(b, s, hk, g, hd).movedim(1, 3).float()
+    kf = k.movedim(1, 2).float()
+    vf = v.movedim(1, 2).float()
+    dof = do.reshape(b, s, hk, g, hd).movedim(1, 3).float()
+    delta = torch.sum(out * dof, -1)                         # (B,Hk,G,S)
+
+    dq = torch.zeros(qf.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(kf.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vf.shape, dtype=torch.float32, device=q.device)
+    tri = schedule == "tri" and causal
+    for qi, ki in _pairs(s // block_q, t // block_k, tri, block_q, block_k,
+                         q_offset):
+        qs = slice(qi * block_q, (qi + 1) * block_q)
+        ks = slice(ki * block_k, (ki + 1) * block_k)
+        qt, kt, vt = qf[:, :, :, qs], kf[:, :, ks], vf[:, :, ks]
+        dot = dof[:, :, :, qs]
+        sc = torch.einsum("bkgqd,bktd->bkgqt", qt, kt) * scale
+        mask = _tile_mask(qi, ki, block_q, block_k, causal, window,
+                          kv_valid, q_offset, q.device)
+        sc = torch.where(mask, sc, NEG_INF)
+        p = torch.exp(sc - lse[..., qs, None])               # (B,Hk,G,bq,bk)
+        dv_t = torch.einsum("bkgqt,bkgqd->bkgtd", p, dot)
+        dp = torch.einsum("bkgqd,bktd->bkgqt", dot, vt)
+        ds = p * (dp - delta[..., qs, None]) * scale
+        dq[:, :, :, qs] += torch.einsum("bkgqt,bktd->bkgqd", ds, kt)
+        # the GQA group sum for dk / dv
+        dk[:, :, ks] += torch.einsum("bkgqt,bkgqd->bkgtd", ds, qt).sum(2)
+        dv[:, :, ks] += dv_t.sum(2)
+    return (dq.movedim(3, 1).reshape(b, s, hq, hd).to(q.dtype),
+            dk.movedim(2, 1).to(k.dtype), dv.movedim(2, 1).to(v.dtype))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Blocked forward that keeps (f32 output, lse); recompute-per-tile
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, schedule, block_q, block_k, window,
+                kv_valid, q_offset):
+        out, out_f32, lse = _flash_fwd(q, k, v, causal, schedule, block_q,
+                                       block_k, window, kv_valid, q_offset)
+        ctx.save_for_backward(q, k, v, out_f32, lse)
+        ctx.static = (causal, schedule, block_q, block_k, window, kv_valid,
+                      q_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out_f32, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out_f32, lse, do, *ctx.static)
+        return (dq, dk, dv) + (None,) * 7
+
+
+def flash_attention(q, k, v, causal: bool = True, schedule: str = "dense",
+                    block_q: int = 512, block_k: int = 512, window: int = 0,
+                    kv_valid: int = 10 ** 9, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """q: (B,S,Hq,hd), k/v: (B,T,Hk,hd) -> (B,S,Hq,hd) in q's dtype.
+
+    S and T must be multiples of ``block_q`` and ``block_k``.
+    Differentiable in q, k and v through the blocked backward.
+    """
+    _check(q, k, block_q, block_k, schedule)
+    return _FlashAttention.apply(q, k, v, causal, schedule, block_q,
+                                 block_k, int(window), int(kv_valid),
+                                 int(q_offset))
 
 
 def reference_attention(q, k, v, causal=True, window=0, kv_valid=10 ** 9,

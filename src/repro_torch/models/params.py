@@ -276,7 +276,9 @@ def params_from_numpy(tree: Any, device: DeviceLike = None) -> Dict[str, Any]:
     """A parameter tree of arrays (the reference's params after
     ``jax.tree.map(np.asarray, params)``, or CPU tensors) as the port's:
     the same keys and the same stacked ``(L, ...)`` leaves, copied onto
-    ``device`` (default the card) with their dtypes."""
+    ``device`` (default the card) with their dtypes.  It takes the
+    reference's AdamW state (``{"m", "v", "step"}``) the same way, so
+    parity tests can start both packages from one ``(params, opt)``."""
     dev = resolve_device(device)
 
     def leaf(a):

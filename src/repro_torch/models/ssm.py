@@ -21,6 +21,7 @@ Conventions: inputs are (B, S, d); params are one layer's dict.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -221,7 +222,8 @@ def _wkv6_chunk_scan(r, k, v, w_log, u, chunk: int):
     Returns (y (B,S,H,hd) f32, final state (B,H,hd,hd) f32).  State
     S_t = diag(exp(w_log_t)) S_{t-1} + k_t v_t^T, and
     o_t = r_t (S_{t-1} + diag(u) k_t v_t^T).  The (B, c, c, H, hd) decay
-    tensor is built and freed once per chunk.
+    tensor is built and freed once per chunk: in place without autograd,
+    out of place when grad is enabled, so the scan can be differentiated.
     """
     bsz, s, h, hd = r.shape
     s_orig = s
@@ -250,9 +252,14 @@ def _wkv6_chunk_scan(r, k, v, w_log, u, chunk: int):
                                state)
         # u < t: decay prod_{j=u+1..t-1} = exp(wcum_excl_t - wcum_u)
         decay = wcum_excl[:, :, None] - wcum[:, None, :]   # (B,t,u,H,hd)
-        decay.exp_()
-        decay.masked_fill_(~strict, 0.0)
-        decay.mul_(rk[:, :, None]).mul_(kk[:, None])
+        # masked before the exp: exp(-inf) = 0 where the reference's
+        # where() gives 0, and no inf can reach a gradient as 0 * inf
+        if torch.is_grad_enabled():
+            decay = torch.exp(decay.masked_fill(~strict, -math.inf)) \
+                * rk[:, :, None] * kk[:, None]
+        else:       # in place: serving holds one chunk tensor, not four
+            decay.masked_fill_(~strict, -math.inf).exp_()
+            decay.mul_(rk[:, :, None]).mul_(kk[:, None])
         att = decay.sum(-1)                                # (B,t,u,H)
         del decay
         diag = (rk * u[None, None] * kk).sum(-1)           # current token

@@ -26,18 +26,29 @@ Entry points:
   them through a ``dynamic_update_index_in_dim``); SSM states are
   replaced by new tensors.
 
-``loss_fn`` / ``make_train_step`` come with the training slice
-(``ROADMAP.md``).  Every function follows the device of the parameters:
-token, patch, frame and position inputs (numpy or tensors) are moved
+* :func:`loss_fn` / :func:`make_train_step` — the masked cross-entropy
+  of :func:`forward_hidden`'s logits, and one AdamW step on its
+  gradients, with ``accum`` sequential microbatches summed in f32.
+
+The training forward unbinds each stacked ``(L, ...)`` leaf once
+(:func:`_unstack`): indexing a stack once per layer would, under
+autograd, allocate a zero tensor of the whole stack per layer in the
+backward.  With ``cfg.remat == "full"`` each layer (each zamba2 group,
+each whisper layer) runs under ``torch.utils.checkpoint`` while grad is
+enabled, where the reference applies ``jax.checkpoint``.
+
+Every function follows the device of the parameters: token, patch,
+frame, position, label and mask inputs (numpy or tensors) are moved
 there.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
@@ -45,6 +56,8 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.flash import flash_attention, reference_attention
+from repro_torch.models.params import tree_leaves
+from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
 
 FLASH_MIN = 2048 * 2048   # S*T above which the blocked path is used
 BLOCK = 512
@@ -70,6 +83,29 @@ def _layer(tree: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i`` of a stacked parameter tree (views, no copies)."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer of a stacked parameter tree, one ``unbind`` per leaf
+    (views; under autograd one ``UnbindBackward`` per leaf)."""
+    parts = {k: _unstack(v) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(n)]
+
+
+def _remat(fn: Callable, cfg: ArchConfig) -> Callable:
+    """``fn`` under activation checkpointing when ``cfg.remat == "full"``
+    and grad is enabled (the reference's ``jax.checkpoint``)."""
+    if cfg.remat != "full":
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return run
 
 
 def sinusoid_pos(seq: int, d: int, device=None) -> torch.Tensor:
@@ -240,31 +276,40 @@ def forward_hidden(params, tokens, cfg: ArchConfig, *, pos=None,
     pos = (torch.arange(s, dtype=torch.int32, device=x.device)[None]
            .expand(b, s) if pos is None else _tensor(pos, x.device))
     if cfg.family == "ssm" and cfg.ssm.kind == "rwkv6":
-        for i in range(cfg.n_layers):
-            x, _ = rwkv_block(x, _layer(params["layers"], i), cfg)
+        block = _remat(lambda c, lp: rwkv_block(c, lp, cfg)[0], cfg)
+        for lp in _unstack(params["layers"]):
+            x = block(x, lp)
         return x
     if cfg.family == "ssm" and cfg.ssm.kind == "mamba2":
-        for i in range(cfg.n_layers):
-            x = mamba_block(x, _layer(params["layers"], i), cfg)
+        block = _remat(lambda c, lp: mamba_block(c, lp, cfg), cfg)
+        for lp in _unstack(params["layers"]):
+            x = block(x, lp)
         return x
     if cfg.family == "hybrid":
         return zamba_hidden(params, x, cfg, pos, impl, schedule)
     windows, thetas = _layer_meta(cfg)
-    for i in range(cfg.n_layers):
-        x = dense_block(x, _layer(params["layers"], i), cfg, pos,
-                        windows[i], thetas[i], impl, schedule)
+    block = _remat(lambda c, lp, w, th: dense_block(c, lp, cfg, pos, w, th,
+                                                    impl, schedule), cfg)
+    for i, lp in enumerate(_unstack(params["layers"])):
+        x = block(x, lp, windows[i], thetas[i])
     return x
 
 
 def zamba_hidden(params, x, cfg: ArchConfig, pos, impl, schedule):
     n_attn, per_group, grouped, n_mamba = _zamba_layout(cfg)
-    mam, shared = params["layers"], params["shared_attn"]
+    mam, shared = _unstack(params["layers"]), params["shared_attn"]
+
+    def group(c, lps):
+        for lp in lps:
+            c = mamba_block(c, lp, cfg)
+        return shared_attn_block(c, shared, cfg, pos, impl, schedule)
+
+    group, inner = _remat(group, cfg), _remat(
+        lambda c, lp: mamba_block(c, lp, cfg), cfg)
     for g in range(n_attn):
-        for j in range(g * per_group, (g + 1) * per_group):
-            x = mamba_block(x, _layer(mam, j), cfg)
-        x = shared_attn_block(x, shared, cfg, pos, impl, schedule)
+        x = group(x, mam[g * per_group:(g + 1) * per_group])
     for j in range(grouped, n_mamba):
-        x = mamba_block(x, _layer(mam, j), cfg)
+        x = inner(x, mam[j])
     return x
 
 
@@ -291,14 +336,18 @@ def whisper_encode(params, frames, cfg: ArchConfig, impl="auto",
     x = _pad_enc(x, cfg)
     pos = torch.arange(x.shape[1], dtype=torch.int32,
                        device=dev)[None].expand(b, x.shape[1])
-    for i in range(cfg.encdec.enc_layers):
-        lp = _layer(params["enc_layers"], i)
-        h = L.norm(x, lp["ln1"], cfg)
-        x = x + attention_full(h, lp["attn"], cfg, pos, 0, cfg.rope_theta,
+
+    def layer(c, lp):
+        h = L.norm(c, lp["ln1"], cfg)
+        c = c + attention_full(h, lp["attn"], cfg, pos, 0, cfg.rope_theta,
                                impl=impl, schedule=schedule, causal=False,
                                kv_valid=es)
-        h = L.norm(x, lp["ln2"], cfg)
-        x = x + L.mlp(h, lp["mlp"], cfg)
+        h = L.norm(c, lp["ln2"], cfg)
+        return c + L.mlp(h, lp["mlp"], cfg)
+
+    layer = _remat(layer, cfg)
+    for lp in _unstack(params["enc_layers"]):
+        x = layer(x, lp)
     x = L.norm(x, params["enc_final_norm"], cfg)
     return x[:, :es]
 
@@ -317,18 +366,135 @@ def whisper_decoder_hidden(params, tokens, enc, cfg: ArchConfig,
     x, pos = _whisper_dec_embed(params, tokens, cfg)
     es = enc.shape[1]
     enc_p = _pad_enc(enc, cfg)
-    for i in range(cfg.n_layers):
-        lp = _layer(params["layers"], i)
-        h = L.norm(x, lp["ln1"], cfg)
-        x = x + attention_full(h, lp["attn"], cfg, pos, 0, cfg.rope_theta,
+
+    def layer(c, lp):
+        h = L.norm(c, lp["ln1"], cfg)
+        c = c + attention_full(h, lp["attn"], cfg, pos, 0, cfg.rope_theta,
                                impl=impl, schedule=schedule)
-        h = L.norm(x, lp["ln2"], cfg)
-        x = x + attention_full(h, lp["cross"], cfg, pos, 0, cfg.rope_theta,
+        h = L.norm(c, lp["ln2"], cfg)
+        c = c + attention_full(h, lp["cross"], cfg, pos, 0, cfg.rope_theta,
                                impl=impl, schedule=schedule, kv_x=enc_p,
                                kv_valid=es)
-        h = L.norm(x, lp["ln3"], cfg)
-        x = x + L.mlp(h, lp["mlp"], cfg)
+        h = L.norm(c, lp["ln3"], cfg)
+        return c + L.mlp(h, lp["mlp"], cfg)
+
+    layer = _remat(layer, cfg)
+    for lp in _unstack(params["layers"]):
+        x = layer(x, lp)
     return x
+
+
+# --------------------------------------------------------------------- loss
+
+def masked_cross_entropy(logits, labels, vocab: int, mask=None
+                         ) -> torch.Tensor:
+    """Mean next-token NLL in f32 over the real vocabulary (padded
+    columns masked out); with ``mask``, the mean over its weight."""
+    logits = logits.float()
+    if logits.shape[-1] > vocab:
+        pad = torch.arange(logits.shape[-1], device=logits.device) >= vocab
+        logits = torch.where(pad, -1e30, logits)
+    logz = torch.logsumexp(logits, -1)
+    labels = _tensor(labels, logits.device, torch.long)
+    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    nll = logz - gold
+    if mask is not None:
+        mask = _tensor(mask, logits.device).float()
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def loss_fn(params, batch: Dict[str, Any], cfg: ArchConfig, impl="auto",
+            schedule="dense") -> torch.Tensor:
+    """The batch's loss: ``tokens``, ``labels`` and the optional ``pos``,
+    ``patches``, ``frames`` and ``loss_mask``.  A VLM's loss leaves out
+    the patch positions."""
+    h = forward_hidden(params, batch["tokens"], cfg, pos=batch.get("pos"),
+                       patches=batch.get("patches"),
+                       frames=batch.get("frames"), impl=impl,
+                       schedule=schedule)
+    if cfg.vlm is not None and batch.get("patches") is not None:
+        h = h[:, batch["patches"].shape[1]:]       # loss on text positions
+    h = L.norm(h, params["final_norm"], cfg)
+    logits = L.lm_logits(h, params, cfg)
+    return masked_cross_entropy(logits, batch["labels"], cfg.vocab,
+                                batch.get("loss_mask"))
+
+
+# --------------------------------------------------------------- train step
+
+def _value_and_grad(params, batch, cfg: ArchConfig, impl, schedule):
+    """(loss, grads with the params' tree); a leaf the loss does not reach
+    (zamba2's shared block below ``hybrid_attn_every`` layers) gets zeros,
+    as under ``jax.grad``."""
+    paths, leaves = zip(*tree_leaves(params))
+    flags = [leaf.requires_grad for leaf in leaves]
+    try:
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        with torch.enable_grad():
+            loss = loss_fn(params, batch, cfg, impl, schedule)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    finally:
+        for leaf, flag in zip(leaves, flags):
+            leaf.requires_grad_(flag)
+    by_path = {p: torch.zeros_like(leaf) if g is None else g
+               for p, leaf, g in zip(paths, leaves, grads)}
+    return loss.detach(), _like(params, by_path)
+
+
+def _like(tree, by_path: Dict[str, Any], prefix: str = ""):
+    """``tree``'s nested dicts with the leaf at each path from
+    ``by_path``."""
+    if isinstance(tree, dict):
+        return {k: _like(v, by_path, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return by_path[prefix]
+
+
+def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, accum: int = 1,
+                    impl="auto", schedule="dense"):
+    """Returns train_step(params, opt_state, batch) -> (params', opt',
+    metrics).
+
+    ``accum`` splits the batch into sequential microbatches along axis 0:
+    activation memory peaks at one microbatch's, and the gradients are
+    summed in f32, then divided by ``accum``, as is the loss.  The AdamW
+    update writes into ``params`` and ``opt_state`` in place
+    (:func:`repro_torch.optim.adamw_update`).
+    """
+    sched = cosine_schedule(opt_cfg.warmup, opt_cfg.total_steps,
+                            opt_cfg.min_lr_frac)
+
+    def train_step(params, opt_state, batch):
+        if accum == 1:
+            loss, grads = _value_and_grad(params, batch, cfg, impl, schedule)
+        else:
+            def micro(x, i):
+                mb = x.shape[0] // accum
+                return x.reshape((accum, mb) + tuple(x.shape[1:]))[i]
+            grads, loss = None, torch.zeros((), device=_device(params))
+            for i in range(accum):
+                mb = {k: micro(v, i) for k, v in batch.items()}
+                l, g = _value_and_grad(params, mb, cfg, impl, schedule)
+                if grads is None:
+                    grads = {p: torch.zeros(t.shape, dtype=torch.float32,
+                                            device=t.device)
+                             for p, t in tree_leaves(g)}
+                for p, t in tree_leaves(g):
+                    grads[p].add_(t.float())
+                del g
+                loss = loss + l
+            for t in grads.values():
+                t.div_(accum)
+            grads = _like(params, grads)
+            loss = loss / accum
+        params, opt_state, metrics = adamw_update(params, grads, opt_state,
+                                                  opt_cfg, sched)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
 
 
 # ----------------------------------------------------------------- caches

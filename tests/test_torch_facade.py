@@ -107,12 +107,33 @@ def test_port_sources_have_no_jax_or_reference_imports():
             "src/repro_torch/models/params.py",
             "src/repro_torch/models/ssm.py",
             "src/repro_torch/models/transformer.py",
-            "src/repro_torch/serving/lm_decode.py"} <= names
+            "src/repro_torch/serving/lm_decode.py",
+            "src/repro_torch/optim/__init__.py",
+            "src/repro_torch/optim/adamw.py",
+            "src/repro_torch/optim/schedule.py",
+            "src/repro_torch/optim/compress.py",
+            "src/repro_torch/data/tokens.py",
+            "src/repro_torch/checkpoint/__init__.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "src/repro_torch/runtime/loop.py",
+            "src/repro_torch/parallel/pipeline.py",
+            "src/repro_torch/launch/train.py"} <= names
     offenders = [f"{f.name}:{i}: {line.strip()}"
                  for f in files
                  for i, line in enumerate(f.read_text().splitlines(), 1)
                  if pattern.match(line)]
     assert not offenders, offenders
+
+
+def test_training_packages_cover_the_reference_public_surface():
+    """``__all__`` of the port's optim, checkpoint, runtime and data
+    packages holds every name of the reference's."""
+    import importlib
+    for pkg in ("optim", "checkpoint", "runtime", "data"):
+        ref = importlib.import_module(f"repro.{pkg}")
+        port = importlib.import_module(f"repro_torch.{pkg}")
+        assert set(ref.__all__) <= set(port.__all__), pkg
+        assert all(hasattr(port, name) for name in port.__all__), pkg
 
 
 # ------------------------------------------------------------ device rules
