@@ -8,6 +8,7 @@ toolkit (``nvcc``):
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
     python3 chip_smoke.py --lm-only       # the [lm] phase only
     python3 chip_smoke.py --train-only    # the [train] phase only
+    python3 chip_smoke.py --dryrun-only   # build + the [dryrun] phase only
 
 The environment variables ``REPRO_GED_SHARED_CACHE_DIR``,
 ``REPRO_GED_COMPILE_CACHE_DIR`` and ``REPRO_GED_FAULT_INJECT`` are cleared
@@ -185,10 +186,32 @@ nothing falls back to the CPU):
     config on the card against the CPU (``TRAIN_TOL``); and
     ``python -m repro_torch.launch.train`` (no ``--device``) at reduced
     scale in a child process;
-15. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
-    ``"auto"`` run, the fused store's, the services' and the mesh
-    ``"auto"`` run's), the card's name and power limit, and as the last
-    line ``{"ok": true, "device": {...}}``.
+15. ``[dryrun]``, the launch layer's placement and dry run: on a one-rank
+    NCCL group (a ``file://`` store) and a ``(1, 1, 1)`` ``("pod",
+    "data", "model")`` mesh on ``cuda:0``, ``launch.steps.build_train``
+    for gemma3-1b at full size (``[train]``'s B = 8, S = 512, seed and
+    token batches, 3 steps, ``impl="naive"``) against the unsharded
+    ``make_train_step`` (losses and every parameter: bit equality, or the
+    largest difference against ``TRAIN_TOL``), and ``build_prefill`` /
+    ``build_decode`` for qwen3-8b at full width (bf16 weights, B = 8,
+    S = 512) against ``prefill_step`` / ``decode_step``, with step ms and
+    peak memory; with two or more cards, gemma3-1b's losses on a
+    ``("data", "model")`` mesh of one NCCL process per card against the
+    one-card run (unverified on a one-card machine); and
+    ``python -m repro_torch.launch.dryrun`` in child processes (started
+    after the kernel checks, so they run on the host beside phases 4-14)
+    on qwen3-8b ``train_4k`` (both meshes), qwen2-moe-a2.7b
+    ``decode_32k`` and rwkv6-3b ``long_500k`` (abstract, on a fake
+    process group of 256 or 512 ranks; qwen2-72b ``train_4k`` takes
+    longer than the script's limit and runs alone), and ``ged-verify``
+    (concrete on the card, launching ``reduced_top2``): each record's status,
+    per-device FLOPs, useful-FLOPs ratio, collective and DCN bytes, peak
+    bytes per device against 80 GB, bottleneck and wall;
+16. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
+    ``"auto"`` run, the fused store's, the services', the mesh
+    ``"auto"`` run's and the ``ged-verify`` dry-run cell's), the card's
+    name and power limit, and as the last line ``{"ok": true, "device":
+    {...}}``.
 
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -2975,6 +2998,353 @@ def train_phase(smi):
     return summ
 
 
+# ------------------------------------------------------------ [dryrun]
+
+# qwen2-72b train_4k (80 layers x 16 microbatches, ~4.4x qwen3-8b's
+# eager step) does not fit the script's time limit: it runs alone
+# through the same CLI (PERF.md, PR 25)
+DRYRUN_CELLS = [("qwen3-8b", "train_4k", "single"),
+                ("qwen3-8b", "train_4k", "multi"),
+                ("qwen2-moe-a2.7b", "decode_32k", "single"),
+                ("rwkv6-3b", "long_500k", "single")]
+DRYRUN_TIMEOUT = 900
+SHARDED_TRAIN_STEPS = 3
+
+
+def start_dryrun_children(out_dir):
+    """One ``python -m repro_torch.launch.dryrun`` process per LM cell of
+    DRYRUN_CELLS (CPU only: ``meta`` tensors on a fake process group),
+    started together; returns the processes and their log files."""
+    import atexit
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env["CUDA_VISIBLE_DEVICES"] = ""      # the abstract cells use no card
+    procs = []
+
+    def stop():                           # whatever way the script ends
+        for proc, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+    atexit.register(stop)
+    for arch, shape, mesh in DRYRUN_CELLS:
+        logf = open(Path(out_dir) / f"{arch}__{shape}__{mesh}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(out_dir),
+             "--force"], cwd=ROOT, env=env, stdout=logf,
+            stderr=subprocess.STDOUT), logf, (arch, shape, mesh)))
+    return procs
+
+
+def dryrun_row(rec):
+    mem, hlo, roof = rec["memory"], rec["hlo"], rec["roofline"]
+    return {"status": rec["status"], "chips": rec["chips"],
+            "flops_per_device": hlo["flops"],
+            "useful_flops_ratio": roof.get("useful_flops_ratio"),
+            "bytes_per_device_eager": hlo["bytes_accessed"],
+            "collective_bytes": hlo["collective_bytes"],
+            "dcn_bytes": hlo["dcn_bytes"],
+            "collective_by_op": hlo["collective_by_op"],
+            "peak_bytes_per_device": mem["peak_bytes_per_device"],
+            "peak_over_80GB": mem["peak_bytes_per_device"] / 80e9,
+            "argument_bytes": mem["argument_bytes"],
+            "alias_bytes": mem["alias_bytes"],
+            "bottleneck": roof["bottleneck"],
+            "step_time_lower_bound_s": roof["step_time_lower_bound_s"],
+            "wall_s": rec["timing"]["build_s"] + rec["timing"]["run_s"],
+            "timing": rec["timing"]}
+
+
+def one_rank_mesh():
+    """A one-rank NCCL group over a ``file://`` store and a (1, 1, 1)
+    ("pod", "data", "model") mesh on cuda:0."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    store = tempfile.mktemp(prefix="repro_torch_nccl_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    return init_device_mesh("cuda", (1, 1, 1),
+                            mesh_dim_names=("pod", "data", "model"))
+
+
+def full_local(t):
+    from repro_torch.parallel.sharding import is_distributed
+    return t.full_tensor() if is_distributed(t) else t
+
+
+def gemma_batches(cfg, steps):
+    from repro_torch.data.tokens import TokenPipeline
+    pipe = TokenPipeline(SEED, TRAIN_BATCH, TRAIN_SEQ, cfg.vocab)
+    it = iter(pipe)
+    return [next(it) for _ in range(steps)]
+
+
+def sharded_gemma_train(mesh):
+    """gemma3-1b at full size: SHARDED_TRAIN_STEPS steps of
+    ``build_train`` on the mesh against the unsharded ``make_train_step``
+    from the same weights and batches ([train]'s)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_train, shard_like
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_leaves
+    from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.parallel.sharding import set_rules
+    cfg = get_arch("gemma3-1b")
+    batches = [{"tokens": torch.as_tensor(b[0], device="cuda"),
+                "labels": torch.as_tensor(b[1], device="cuda")}
+               for b in gemma_batches(cfg, SHARDED_TRAIN_STEPS)]
+    row = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "steps": SHARDED_TRAIN_STEPS, "impl": "naive", "accum": 1,
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    # unsharded: the step [train] runs, with build_train's optimizer
+    free_card()
+    params = init_params(cfg, seed=SEED + 30, device="cuda")
+    step = T.make_train_step(cfg, AdamWConfig(), accum=1, impl="naive")
+    state, want_losses = (params, adamw_init(params)), []
+    for b in batches:
+        p, o, m = step(*state, b)
+        state = (p, o)
+        want_losses.append(float(m["loss"]))
+    want = {k: v.cpu() for k, v in tree_leaves(state[0])}
+    del state, params, p, o
+    free_card()
+    # sharded: the same weights placed on the mesh
+    params = init_params(cfg, seed=SEED + 30, device="cuda")
+    plan = build_train(cfg, ShapeSpec("t", "train", TRAIN_SEQ, TRAIN_BATCH),
+                       mesh, impl="naive", accum=1)
+    p, o = shard_like((params, adamw_init(params)), plan.in_shardings[:2])
+    del params
+    losses, marks = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        p, o, m = plan.fn(p, o, shard_like(b, plan.in_shardings[2]))
+        losses.append(float(full_local(m["loss"])))
+        marks.append(time.perf_counter())
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    row["step_ms"] = [(b - a) * 1e3 for a, b in zip([t0] + marks, marks)]
+    set_rules(None)
+    row["losses"] = losses
+    row["unsharded_losses"] = want_losses
+    row["loss_max_abs_diff"] = max(abs(a - b)
+                                   for a, b in zip(losses, want_losses))
+    worst, bit_equal = 0.0, True
+    for path, leaf in tree_leaves(p):
+        got = full_local(leaf).cpu()
+        bit_equal &= bool(torch.equal(got, want[path]))
+        worst = max(worst, float((got.float() - want[path].float())
+                                 .abs().max()))
+    row["params_bit_equal"] = bit_equal
+    row["param_max_abs_diff"] = worst
+    row["losses_bit_equal"] = losses == want_losses
+    assert row["loss_max_abs_diff"] <= TRAIN_TOL["loss"], row
+    assert bit_equal or worst <= TRAIN_TOL["param"], row
+    del p, o, m, want
+    free_card()
+    return row
+
+
+def sharded_qwen_serve(mesh):
+    """qwen3-8b at full width, bf16 weights: ``build_prefill`` then
+    ``build_decode`` on the mesh against ``prefill_step`` /
+    ``decode_step`` (B = 8, S = 512)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import (build_decode, build_prefill,
+                                          shard_like)
+    from repro_torch.models import transformer as T
+    from repro_torch.models.params import init_params, tree_map
+    from repro_torch.parallel.sharding import set_rules
+    cfg = get_arch("qwen3-8b")
+    b, s = TRAIN_BATCH, TRAIN_SEQ
+    free_card()
+    params = tree_map(lambda t: t.to(torch.bfloat16),
+                      init_params(cfg, seed=SEED + 32, device="cuda"))
+    rng = np.random.default_rng(SEED + 33)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab, (b, s)),
+                             dtype=torch.int32, device="cuda")
+    nxt = torch.as_tensor(rng.integers(0, cfg.vocab, (b, 1)),
+                          dtype=torch.int32, device="cuda")
+    row = {"arch": cfg.name, "batch": b, "seq": s, "params": "bf16"}
+    with torch.no_grad():
+        want_pl, want_pc = T.prefill_step(params, tokens, cfg)
+        want_dl, want_dc = T.decode_step(
+            params, {k: v.clone() for k, v in want_pc.items()}, nxt, s - 1,
+            cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    plan = build_prefill(cfg, ShapeSpec("p", "prefill", s, b), mesh)
+    args = shard_like((params, {"tokens": tokens}), plan.in_shardings)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = plan.fn(*args)
+    torch.cuda.synchronize()
+    row["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    set_rules(None)
+    caches = {k: full_local(v) for k, v in caches.items()}
+    row["prefill_logits_max_abs_diff"] = float(
+        (full_local(logits) - want_pl).abs().max())
+    row["prefill_caches_bit_equal"] = all(
+        torch.equal(caches[k], want_pc[k]) for k in want_pc)
+    plan = build_decode(cfg, ShapeSpec("d", "decode", s, b), mesh)
+    args = shard_like((params, caches, nxt, plan.args[3]),
+                      plan.in_shardings)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = plan.fn(*args)
+    torch.cuda.synchronize()
+    row["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    set_rules(None)
+    row["decode_logits_max_abs_diff"] = float(
+        (full_local(logits) - want_dl).abs().max())
+    row["decode_caches_bit_equal"] = all(
+        torch.equal(full_local(caches[k]), want_dc[k]) for k in want_dc)
+    row["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    scale = float(want_pl.abs().max())
+    row["logits_scale"] = scale
+    # f32 logits of bf16 weights: the same local GEMMs, so equal or within
+    # one bf16 rounding of the logits' scale
+    for k in ("prefill_logits_max_abs_diff", "decode_logits_max_abs_diff"):
+        assert row[k] <= 2 ** -7 * scale, row
+    del params, args, caches, logits, want_pc, want_dc
+    free_card()
+    return row
+
+
+def multi_card_child(rank, world, store, out):
+    """One NCCL rank of the several-card check (``--dryrun-rank-child``):
+    gemma3-1b's sharded steps on a (world, 1) ("data", "model") mesh."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.shapes import ShapeSpec
+    from repro_torch.launch.steps import build_train, shard_like
+    from repro_torch.models.params import init_params
+    from repro_torch.optim import adamw_init
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = init_device_mesh("cuda", (world, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_arch("gemma3-1b")
+        params = init_params(cfg, seed=SEED + 30, device=f"cuda:{rank}")
+        plan = build_train(cfg, ShapeSpec("t", "train", TRAIN_SEQ,
+                                          TRAIN_BATCH), mesh, impl="naive",
+                           accum=1)
+        p, o = shard_like((params, adamw_init(params)),
+                          plan.in_shardings[:2])
+        del params
+        losses = []
+        for b in gemma_batches(cfg, SHARDED_TRAIN_STEPS):
+            bb = {"tokens": torch.as_tensor(b[0], device=f"cuda:{rank}"),
+                  "labels": torch.as_tensor(b[1], device=f"cuda:{rank}")}
+            p, o, m = plan.fn(p, o, shard_like(bb, plan.in_shardings[2]))
+            losses.append(float(full_local(m["loss"])))
+        if rank == 0:
+            Path(out).write_text(json.dumps(losses))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def multi_card_check(one_card_losses):
+    import torch
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        store, out = Path(tmp) / "store", Path(tmp) / "losses.json"
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"),
+             "--dryrun-rank-child", str(r), str(world), str(store),
+             str(out)], cwd=ROOT, env=env) for r in range(world)]
+        for proc in procs:
+            assert proc.wait(timeout=DRYRUN_TIMEOUT) == 0, "rank failed"
+        losses = json.loads(out.read_text())
+    diff = max(abs(a - b) for a, b in zip(losses, one_card_losses))
+    assert diff <= TRAIN_TOL["loss"] * 10, (losses, one_card_losses)
+    return {"cards": world, "losses": losses, "loss_max_abs_diff": diff}
+
+
+def dryrun_phase(smi, children, out_dir):
+    """The launch layer's placement on the card and its dry run (see the
+    module docstring, phase 15).  Returns (summary, reduced_top2
+    launches of the ged-verify cell)."""
+    import torch
+    import torch.distributed as dist
+    t_phase = time.perf_counter()
+    summ = {}
+    mesh = one_rank_mesh()
+    try:
+        summ["gemma3_1b_train"] = sharded_gemma_train(mesh)
+        log("[dryrun] gemma3-1b build_train on a one-rank NCCL (1, 1, 1) "
+            "mesh vs the unsharded step: "
+            + json.dumps(summ["gemma3_1b_train"]) + f" ({smi})")
+        summ["qwen3_8b_serve"] = sharded_qwen_serve(mesh)
+        log("[dryrun] qwen3-8b build_prefill / build_decode on the same "
+            "mesh vs prefill_step / decode_step: "
+            + json.dumps(summ["qwen3_8b_serve"]) + f" ({smi})")
+    finally:
+        dist.destroy_process_group()
+    if torch.cuda.device_count() >= 2:
+        summ["multi_card"] = multi_card_check(
+            summ["gemma3_1b_train"]["losses"])
+        log("[dryrun] several cards: " + json.dumps(summ["multi_card"]))
+    else:
+        summ["multi_card"] = "not run: one card (unverified branch)"
+    # ged-verify: concrete on the card, in a child process
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "ged-verify", "--mesh", "single", "--out", str(out_dir), "--force"],
+        cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT)
+    log(f"[dryrun] ged-verify child: rc={res.returncode} "
+        f"{time.perf_counter() - t0:.1f} s: {res.stdout.strip()[-400:]}")
+    cells = [(a, s, m) for a, s, m in DRYRUN_CELLS] + \
+        [("ged-verify", "verify_db", "single")]
+    for proc, logf, cell in children:
+        try:
+            rc = proc.wait(timeout=max(
+                1, DRYRUN_TIMEOUT - (time.perf_counter() - t_phase)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = "timeout"
+        logf.close()
+        log(f"[dryrun] child {'/'.join(cell)}: rc={rc}")
+    failed, ged_launches = [], 0
+    for arch, shape, mesh_kind in cells:
+        path = Path(out_dir) / f"{arch}__{shape}__{mesh_kind}.json"
+        if not path.exists():
+            failed.append((arch, shape, mesh_kind, "no record"))
+            continue
+        rec = json.loads(path.read_text())
+        if rec["status"] != "ok":
+            failed.append((arch, shape, mesh_kind, rec.get("error")))
+            log(f"[dryrun] {arch} {shape} {mesh_kind}: FAILED "
+                + json.dumps({k: rec.get(k) for k in ("error", "traceback")}))
+            continue
+        row = dryrun_row(rec)
+        if arch == "ged-verify":
+            row["launches"] = rec["launches"]
+            row["pairs_run_on_the_card"] = rec["n_pairs_run"]
+            ged_launches = rec["launches"]["reduced_top2"]
+        summ[f"{arch}__{shape}__{mesh_kind}"] = row
+        log(f"[dryrun] {arch} {shape} {mesh_kind}: " + json.dumps(row)
+            + f" (roofline at the H100 SXM5 data sheet; {smi})")
+    assert not failed, f"dry-run cells failed: {failed}"
+    assert ged_launches > 0, "the ged-verify cell launched no reduced_top2"
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[dryrun] summary: " + json.dumps(summ) + f" ({smi})")
+    return summ, ged_launches
+
+
 # ----------------------------------------------------------------- main
 
 def main(argv) -> int:
@@ -2993,6 +3363,9 @@ def main(argv) -> int:
         return shared_cache_child(argv[1])
     if argv[:1] == ["--compile-cache-child"]:
         return compile_cache_child(argv[1])
+    if argv[:1] == ["--dryrun-rank-child"]:
+        return multi_card_child(int(argv[1]), int(argv[2]), argv[3],
+                                argv[4])
     from repro_torch.core.engine.tensor_graphs import label_vocab
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -3022,6 +3395,14 @@ def main(argv) -> int:
     _build.build(verbose=True)
     _build.library()
     log(f"[build] {time.perf_counter() - t0:.2f} s -> {_build.library_path()}")
+    dry_dir = tempfile.mkdtemp(prefix="repro_torch_dryrun_")
+    if "--dryrun-only" in argv:       # iterate on the dry-run phase alone
+        dryrun_phase(smi, start_dryrun_children(dry_dir), dry_dir)
+        log(f"[device] {smi}")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     rng = np.random.default_rng(SEED)
     pairs, ks = aids_pairs(rng, PAIRS, 20, 30)
@@ -3063,6 +3444,9 @@ def main(argv) -> int:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}}))
         return 0
+
+    # ---- the abstract dry-run cells run on the host from here on -------
+    dry_children = start_dryrun_children(dry_dir)
 
     # ---- the main path: counts read around the "cuda" run only ----------
     vocab = label_vocab(pairs)
@@ -3148,9 +3532,14 @@ def main(argv) -> int:
     # ---- LM training: gemma3-1b at full size, qwen3-8b at full width ---
     train_summ = train_phase(smi)
 
+    # ---- the launch layer: placement on the card and the dry run -------
+    dry_summ, dry_launches = dryrun_phase(smi, dry_children, dry_dir)
+
     phase_launches = {"auto": launches, "store": store_launches,
                       "serving": serving_launches,
-                      "sharded": sharded_launches}
+                      "sharded": sharded_launches,
+                      "dryrun": {k: (dry_launches if k == "reduced_top2"
+                                     else 0) for k in KERNELS}}
     total = {k: sum(p[k] for p in phase_launches.values()) for k in KERNELS}
     log("[kernels] " + ", ".join(
         f"{k}: launches={total[k]} (" + ", ".join(
@@ -3160,7 +3549,7 @@ def main(argv) -> int:
                     "cache_path": cache_summ, "faults_path": faults_summ,
                     "store_path": store_summ, "serving_path": serving_summ,
                     "sharded_path": sharded_summ, "lm_path": lm_summ,
-                    "train_path": train_summ,
+                    "train_path": train_summ, "dryrun_path": dry_summ,
                     "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))

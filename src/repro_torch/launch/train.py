@@ -14,7 +14,9 @@ On the card (the default device), at full size:
 
 The data pipeline is deterministic by step, the optimizer updates the
 state in place, and checkpoints are written async and atomically in the
-reference's layout.  Multi-device placement of the step is not ported.
+reference's layout.  This trainer runs on one device; the same step
+placed over a ``torch.distributed`` mesh (FSDP over ``data``, TP over
+``model``) is ``launch/steps.py::build_train``.
 """
 
 from __future__ import annotations

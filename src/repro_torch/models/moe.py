@@ -1,8 +1,8 @@
 """Token-choice top-k MoE with sort-based capacity dispatch.
 
 The port of the reference's ``repro/models/moe.py``.  Tokens are split
-into G groups (:func:`_num_groups`; always 1 here: one device, and the
-port has no multi-device LM placement), and within each group the
+into G groups (:func:`_num_groups`: the batch-shard count of the
+installed sharding rules, else 1), and within each group the
 assignments are sorted by expert, ranked, and the first ``cap`` of each
 expert's are scattered into an ``(E, C, d)`` buffer.  The expert MLPs
 contract that buffer with the ``(E, ...)`` weight stacks as one batched
@@ -19,6 +19,11 @@ row ``E * C``, which nothing reads.  The reference sends it to row
 ``Tg * k < E * C``, so a dropped token's activations overwrite a kept
 token's input there (``ROADMAP.md``, R5); with drop-free capacity the two
 agree exactly.
+
+On the DTensor steps of ``launch/steps.py`` the dispatch and the combine
+(sorts, scatters and gathers that DTensor has no sharding rule for) run
+under ``local_map``: each device handles the groups of its own batch
+shard, in the placements the reference's ``constrain`` calls set.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch.nn.functional as F
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import cdt as compute_dtype
 from repro_torch.parallel.ops import top_k_sorted
+from repro_torch.parallel.sharding import constrain, get_rules, is_distributed
 
 
 def router_topk(x: torch.Tensor, wr: torch.Tensor, cfg: ArchConfig):
@@ -58,8 +64,14 @@ def capacity(tokens: int, cfg: ArchConfig) -> int:
 
 
 def _num_groups(b: int, s: int) -> int:
-    """Dispatch groups: 1 (the reference's count of batch shards)."""
-    return 1
+    """Groups = batch-shard count, so per-group dispatch is shard-local."""
+    rules = get_rules()
+    if rules is None:
+        return 1
+    g = rules.mesh_size(rules.table.get("batch"))
+    if g <= 1 or b % g != 0:
+        return 1
+    return g
 
 
 def _dispatch_group(xg: torch.Tensor, idg: torch.Tensor, e: int, cap: int,
@@ -101,6 +113,38 @@ def _combine_group(ex_out_flat: torch.Tensor, slot: torch.Tensor,
     return picked[inv].reshape(tg, k, -1)
 
 
+def _dispatch(xg: torch.Tensor, idg: torch.Tensor, e: int, cap: int,
+              cdt: torch.dtype):
+    """Every group's dispatch: (G, Tg, d), (G, Tg, k) -> (ex_in (G, E, C,
+    d), slot, keep, inv (G, Tg*k))."""
+    groups = [_dispatch_group(xg[i], idg[i], e, cap, cdt)
+              for i in range(xg.shape[0])]
+    return tuple(torch.stack([gr[j] for gr in groups]) for j in range(4))
+
+
+def _combine(flat_out: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+             inv: torch.Tensor, tg: int, k: int) -> torch.Tensor:
+    """Every group's combine: (G, E*C, d) -> (G, Tg, k, d)."""
+    return torch.stack([_combine_group(flat_out[i], slot[i], keep[i],
+                                       inv[i], tg, k)
+                        for i in range(flat_out.shape[0])])
+
+
+def _by_group(fn, n_out: int, *tensors):
+    """``fn`` over the local groups of each device when ``tensors`` are
+    DTensors (``local_map``: no DTensor rule covers the sort-based
+    dispatch), all in the first tensor's placements; else ``fn`` itself."""
+    if not is_distributed(tensors[0]):
+        return fn(*tensors)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = list(tensors[0].placements)
+    out = (pl,) * n_out if n_out > 1 else pl
+    return local_map(fn, out_placements=out, in_placements=(pl,) * len(
+        tensors), device_mesh=tensors[0].device_mesh,
+        redistribute_inputs=True)(*tensors)
+
+
 def _edot(a: torch.Tensor, w: torch.Tensor, cdt: torch.dtype
           ) -> torch.Tensor:
     """(G, E, C, x) @ (E, x, y) -> (G, E, C, y), batched over E, in the
@@ -120,24 +164,32 @@ def moe_mlp(x: torch.Tensor, p: Dict, cfg: ArchConfig) -> torch.Tensor:
     e = moe.total_experts
     cdt = compute_dtype(cfg)
 
-    xt = x.reshape(t, d)
+    # the tokens keep the batch layout (a DTensor would otherwise take
+    # gradients split over every mesh dim, which do not fold back to B)
+    xt = constrain(x.reshape(t, d), "batch", None)
     weights, ids, _ = router_topk(xt, p["router"], cfg)
 
     g = _num_groups(b, s)
     tg = t // g
     cap = capacity(tg, cfg)
     xg = xt.reshape(g, tg, d)
+    xg = constrain(xg, "batch", None, None)
     idg = ids.reshape(g, tg, k)
-    groups = [_dispatch_group(xg[i], idg[i], e, cap, cdt) for i in range(g)]
-    ex_in = torch.stack([gr[0] for gr in groups])          # (G, E, C, d)
+    ex_in, slot, keep, inv = _by_group(
+        lambda xx, ii: _dispatch(xx, ii, e, cap, cdt), 4, xg, idg)
+    # (G, E, C, d): G over (pod, data); E replicated here
+    ex_in = constrain(ex_in, "batch", None, None, None)
 
-    h = F.silu(_edot(ex_in, p["wg"], cdt)) * _edot(ex_in, p["wi"], cdt)
+    ex_in_e = constrain(ex_in, "batch", "expert", None, None)
+    h = F.silu(_edot(ex_in_e, p["wg"], cdt)) * _edot(ex_in_e, p["wi"], cdt)
     ex_out = _edot(h, p["wo"], cdt)                         # (G, E, C, d)
+    # the combine needs every expert's rows on each device
+    ex_out = constrain(ex_out, "batch", None, None, None)
 
     flat_out = ex_out.reshape(g, e * cap, d)
-    per_assign = torch.stack([
-        _combine_group(flat_out[i], *groups[i][1:], tg, k)
-        for i in range(g)])                                 # (G, Tg, k, d)
+    per_assign = _by_group(lambda fo, sl, kp, iv: _combine(fo, sl, kp, iv,
+                                                           tg, k),
+                           1, flat_out, slot, keep, inv)    # (G, Tg, k, d)
     wgt = weights.reshape(g, tg, k)
     # bf16 operands, f32 accumulation, as the reference's combine
     out = torch.einsum("gtk,gtkd->gtd", wgt.to(cdt), per_assign.to(cdt))

@@ -10,8 +10,11 @@ and layer stacks carry a leading ``L`` axis.  From it come
   reference's ``jax.random`` draws, and need not: the parity tests carry
   the reference's weights across with :func:`params_from_numpy`.
 
-``param_pspecs`` / ``abstract_params`` (sharding specs and shape trees
-for the dry-run) come with the dry-run slice.
+* :func:`abstract_params`, ``meta`` tensors of the leaves' shapes and
+  dtype (the reference's ``ShapeDtypeStruct`` tree; nothing allocated);
+* :func:`param_pspecs`, each leaf's spec under a ``ShardingRules`` table
+  (FSDP over ``data`` via "embed", TP over ``model`` via "qkv_flat" /
+  "ff" / "vocab" / "expert"; a dim its axes do not divide is replicated).
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.ssm import mamba2_dims, rwkv6_dims
+from repro_torch.parallel.sharding import ShardingRules, logical_spec
 
 Axes = Tuple[Optional[str], ...]
 
@@ -227,6 +231,19 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Any]:
 
     specs["layers"] = _stack(_layer_specs(cfg), cfg.n_layers)
     return specs
+
+
+def abstract_params(cfg: ArchConfig, dtype=None) -> Dict[str, Any]:
+    """``meta`` tensors with every leaf's shape, in ``cfg.param_dtype``
+    (or ``dtype``)."""
+    dt = getattr(torch, cfg.param_dtype) if dtype is None else dtype
+    return tree_map(lambda s: torch.empty(s.shape, dtype=dt, device="meta"),
+                    param_specs(cfg))
+
+
+def param_pspecs(cfg: ArchConfig, rules: ShardingRules) -> Dict[str, Any]:
+    return tree_map(lambda s: logical_spec(s.shape, s.axes, rules),
+                    param_specs(cfg))
 
 
 def param_count(cfg: ArchConfig) -> int:

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ArchConfig
 from repro_torch.models.layers import cdt as compute_dtype
+from repro_torch.parallel.sharding import is_distributed, reduce_partial
 
 
 def _pad_seq(t: torch.Tensor, pad: int) -> torch.Tensor:
@@ -102,14 +103,15 @@ def _ssd_chunk_scan(xh, dt, a_log, b, c, d_skip, chunk: int):
 
 def _gated_out(y, z, p, x, cdt):
     """Mamba2's gated RMS norm before the output projection."""
-    yn = y * torch.rsqrt(y.square().mean(-1, keepdim=True) + 1e-6)
+    yn = y * torch.rsqrt(reduce_partial(y.square().mean(-1, keepdim=True))
+                         + 1e-6)
     y = yn * p["norm_scale"] * F.silu(z)
     return (y.to(cdt) @ p["out_proj"].to(cdt)).to(x.dtype)
 
 
 def _mamba_in(xc_, p, cdt):
     """The four input projections (z, x, B|C, dt), each back to f32."""
-    return [(xc_ @ p[name].to(cdt)).float()
+    return [reduce_partial(xc_ @ p[name].to(cdt)).float()
             for name in ("in_z", "in_x", "in_bc", "in_dt")]
 
 
@@ -134,11 +136,17 @@ def mamba2_train(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     dt = F.softplus(dt + p["dt_bias"][None, None, :])       # (B,S,H)
     a_log = -torch.exp(p["a_log"])                          # (H,) < 0
 
-    y, final = _ssd_chunk_scan(xconv.reshape(bsz, s, h, hp), dt, a_log,
-                               b.reshape(bsz, s, g, n),
-                               c.reshape(bsz, s, g, n), p["d_skip"],
-                               cfg.ssm.chunk)
-    out = _gated_out(y.reshape(bsz, s, di), z, p, x, cdt)
+    def core(xconv, dt, b, c, a_log, d_skip):
+        nh, bsz = dt.shape[-1], dt.shape[0]
+        y, final = _ssd_chunk_scan(xconv.reshape(bsz, s, nh, hp), dt, a_log,
+                                   b.reshape(bsz, s, g, n),
+                                   c.reshape(bsz, s, g, n), d_skip,
+                                   cfg.ssm.chunk)
+        return y.reshape(bsz, s, nh * hp), final
+
+    y, final = _by_heads(core, h, "sswwvv", (2, 1), xconv, dt, b, c, a_log,
+                         p["d_skip"])
+    out = _gated_out(y, z, p, x, cdt)
     if return_state:
         return out, {"ssd": final, "conv": xin[:, s - (k - 1):]}
     return out
@@ -176,17 +184,81 @@ def mamba2_decode(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     xconv = F.silu(xconv)
     dt = F.softplus(dt + p["dt_bias"][None, :])             # (B,H)
     a_log = -torch.exp(p["a_log"])
-    da = torch.exp(dt * a_log[None, :])                     # (B,H)
 
-    xh = xconv.reshape(bsz, h, hp)
-    bh = b.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
-    ch = c.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)
-    new_ssd = da[:, :, None, None] * state["ssd"] \
-        + (dt[:, :, None] * xh)[..., None] * bh[:, :, None, :]
-    y = torch.einsum("bhn,bhpn->bhp", ch, new_ssd) \
-        + p["d_skip"][None, :, None] * xh
-    out = _gated_out(y.reshape(bsz, di), z, p, x, cdt)
+    def core(xconv, dt, b, c, a_log, d_skip, ssd):
+        nh, bsz = dt.shape[-1], dt.shape[0]
+        da = torch.exp(dt * a_log[None, :])                 # (B,H)
+        xh = xconv.reshape(bsz, nh, hp)
+        bh = b.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)[:, :nh]
+        ch = c.reshape(bsz, g, n).repeat_interleave(h // g, dim=1)[:, :nh]
+        new_ssd = da[:, :, None, None] * ssd \
+            + (dt[:, :, None] * xh)[..., None] * bh[:, :, None, :]
+        y = torch.einsum("bhn,bhpn->bhp", ch, new_ssd) \
+            + d_skip[None, :, None] * xh
+        return y.reshape(bsz, nh * hp), new_ssd
+
+    y, new_ssd = _by_heads(core, h, "sswwvvt", (1, 1), xconv, dt, b, c,
+                           a_log, p["d_skip"], state["ssd"])
+    out = _gated_out(y, z, p, x, cdt)
     return out[:, None, :], {"ssd": new_ssd, "conv": conv_hist[:, 1:]}
+
+
+# ===================================================== per-device heads
+
+def _by_heads(core, h: int, kinds: str, out_dims: Tuple[int, ...], *args):
+    """``core(*args)`` for mixers whose channels split into ``h`` heads;
+    on DTensors, per device over its own batch rows and heads
+    (``local_map``): DTensor has no cheap rule for the chunked scans'
+    high-rank einsums, nor for splitting a sharded channel dim into heads.
+
+    ``kinds`` has one letter per arg: ``s`` a batch-major stream whose
+    last dim runs over heads, ``v`` a per-channel / per-head vector,
+    ``t`` a batch-major state with heads on dim 1, ``w`` a batch-major
+    tensor every head reads whole (SSD's B / C).  ``out_dims`` gives each
+    output's heads dim (batch first).  Heads are split over ``model``
+    when ``h`` divides over it, else replicated; the batch over the
+    rules' batch axes when it divides.  None args pass through.
+    """
+    lead = next(a for a in args if a is not None)
+    if not is_distributed(lead):
+        return core(*args)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.sharding import (get_rules, logical_spec,
+                                               spec_to_placements)
+
+    mesh, rules = lead.device_mesh, get_rules()
+    batch = spec_to_placements(
+        logical_spec((lead.shape[0],), ("batch",), rules), mesh)
+    heads = spec_to_placements(logical_spec((h,), ("heads",), rules), mesh)
+
+    def layout(hdim):
+        return [Shard(0) if bp.is_shard() and hdim != 0 else
+                Shard(hdim) if hp.is_shard() and hdim is not None
+                else Replicate() for bp, hp in zip(batch, heads)]
+
+    from torch.distributed.tensor import Partial
+
+    in_p, grad_p, placed = [], [], []
+    for kind, a in zip(kinds, args):
+        if a is None:
+            in_p.append(None)
+            grad_p.append(None)
+            placed.append(None)
+            continue
+        if not is_distributed(a):
+            a = distribute_tensor(a, mesh, [Replicate()] * mesh.ndim)
+        hdim = {"s": a.ndim - 1, "v": 0, "t": 1, "w": None}[kind]
+        in_p.append(layout(hdim))
+        # a tensor every head reads whole gets each head group's gradient
+        grad_p.append([Partial() if kind == "w" and hp.is_shard() else pl
+                       for pl, hp in zip(in_p[-1], heads)])
+        placed.append(a)
+    out_p = tuple(layout(d) for d in out_dims)
+    return local_map(core, out_placements=out_p, in_placements=tuple(in_p),
+                     in_grad_placements=tuple(grad_p), device_mesh=mesh,
+                     redistribute_inputs=True)(*placed)
 
 
 # ============================================================ RWKV6 (Finch)
@@ -209,9 +281,10 @@ def _rwkv_proj(x, xprev, mix, w, lora_a=None, lora_b=None):
     low-rank term alone, where the reference multiplies by a zero
     matrix first)."""
     xm = x + (xprev - x) * mix[None, None, :]
-    out = xm @ w if w is not None else 0.0
+    out = reduce_partial(xm @ w) if w is not None else 0.0
     if lora_a is not None:
-        out = out + torch.tanh(xm @ lora_a) @ lora_b
+        out = out + reduce_partial(
+            torch.tanh(reduce_partial(xm @ lora_a)) @ lora_b)
     return out
 
 
@@ -295,29 +368,40 @@ def rwkv6_time_mix(x: torch.Tensor, p: Dict, cfg: ArchConfig,
                     p["w_lora_b"]) + p["w_base"][None, None, :]
     w_log = -torch.exp(wl)                                  # (B,S,d) <= 0
 
-    def heads(t):
-        return t.reshape(bsz, s, h, hd)
+    def core(r, k, v, w_log, u, ln_scale, ln_bias, state):
+        """The WKV recurrence and the per-head group norm over ``n`` =
+        ``d' / hd`` heads: (B, S, d') streams -> (B, S, d') f32."""
+        n = r.shape[-1] // hd
+        bsz, s = r.shape[:2]                # this device's rows
 
-    u = p["u"].reshape(h, hd)
-    if state is None:
-        y, new_state = _wkv6_chunk_scan(heads(r), heads(k), heads(v),
-                                        heads(w_log), u, cfg.ssm.chunk)
-    else:
-        rh, kh, vh = heads(r)[:, 0], heads(k)[:, 0], heads(v)[:, 0]
-        wh = torch.exp(heads(w_log)[:, 0])                  # (B,H,hd)
-        kv = kh[..., :, None] * vh[..., None, :]            # (B,H,hd,hd)
-        y = torch.einsum("bhd,bhde->bhe", rh, state + u[None, :, :, None] * kv)
-        new_state = wh[..., None] * state + kv
-        y = y[:, None]                                      # (B,1,H,hd)
+        def heads(t):
+            return t.reshape(bsz, s, n, hd)
 
-    # group norm over each head + output gate
-    yf = y.reshape(bsz, -1, h, hd)
-    mu = yf.mean(-1, keepdim=True)
-    var = yf.var(-1, keepdim=True, correction=0)
-    yn = (yf - mu) * torch.rsqrt(var + 64e-5)
-    yn = yn * p["ln_x_scale"].reshape(1, 1, h, hd) \
-        + p["ln_x_bias"].reshape(1, 1, h, hd)
-    out = (yn.reshape(bsz, -1, d) * F.silu(g)) @ p["wo"]
+        u = u.reshape(n, hd)
+        if state is None:
+            y, new_state = _wkv6_chunk_scan(heads(r), heads(k), heads(v),
+                                            heads(w_log), u, cfg.ssm.chunk)
+        else:
+            rh, kh, vh = heads(r)[:, 0], heads(k)[:, 0], heads(v)[:, 0]
+            wh = torch.exp(heads(w_log)[:, 0])              # (B,H,hd)
+            kv = kh[..., :, None] * vh[..., None, :]        # (B,H,hd,hd)
+            y = torch.einsum("bhd,bhde->bhe", rh,
+                             state + u[None, :, :, None] * kv)
+            new_state = wh[..., None] * state + kv
+            y = y[:, None]                                  # (B,1,H,hd)
+
+        # group norm over each head
+        yf = y.reshape(bsz, -1, n, hd)
+        mu = yf.mean(-1, keepdim=True)
+        var = yf.var(-1, keepdim=True, correction=0)
+        yn = (yf - mu) * torch.rsqrt(var + 64e-5)
+        yn = yn * ln_scale.reshape(1, 1, n, hd) \
+            + ln_bias.reshape(1, 1, n, hd)
+        return yn.reshape(bsz, -1, n * hd), new_state
+
+    yn, new_state = _by_heads(core, h, "ssssvvvt", (2, 1), r, k, v, w_log,
+                              p["u"], p["ln_x_scale"], p["ln_x_bias"], state)
+    out = (yn * F.silu(g)) @ p["wo"]
     return out.to(x.dtype), new_state, xf[:, -1]
 
 
@@ -328,6 +412,7 @@ def rwkv6_channel_mix(x: torch.Tensor, p: Dict, cfg: ArchConfig,
     xprev = _token_shift(xf, prev_x)
     xk = xf + (xprev - xf) * p["mix_fk"][None, None, :]
     xr = xf + (xprev - xf) * p["mix_fr"][None, None, :]
-    kk = torch.square(F.relu(xk @ p["fk"]))
-    out = torch.sigmoid(xr @ p["fr"]) * (kk @ p["fv"])
+    kk = torch.square(F.relu(reduce_partial(xk @ p["fk"])))
+    out = torch.sigmoid(reduce_partial(xr @ p["fr"])) \
+        * reduce_partial(kk @ p["fv"])
     return out.to(x.dtype), xf[:, -1]

@@ -37,6 +37,14 @@ backward.  With ``cfg.remat == "full"`` each layer (each zamba2 group,
 each whisper layer) runs under ``torch.utils.checkpoint`` while grad is
 enabled, where the reference applies ``jax.checkpoint``.
 
+On the DTensor steps of ``launch/steps.py`` the same functions run on
+placed parameters: ``constrain`` sits at the reference's sites, each
+block's output (the residual stream) and its gradient keep the batch
+layout, attention runs per device over its own heads
+(``layers.attend_heads``), and the loss picks each label's logit from
+the device that holds it (:func:`_gold`).  On plain tensors all of these
+are the identity or the plain computation.
+
 Every function follows the device of the parameters: token, patch,
 frame, position, label and mask inputs (numpy or tensors) are moved
 there.
@@ -44,7 +52,7 @@ there.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +66,8 @@ from repro_torch.models.config import ArchConfig
 from repro_torch.models.flash import flash_attention, reference_attention
 from repro_torch.models.params import tree_leaves
 from repro_torch.optim import AdamWConfig, adamw_update, cosine_schedule
+from repro_torch.parallel.sharding import (constrain, is_distributed,
+                                           placed_like)
 
 FLASH_MIN = 2048 * 2048   # S*T above which the blocked path is used
 BLOCK = 512
@@ -96,15 +106,25 @@ def _unstack(tree: Dict[str, Any]) -> List[Dict[str, Any]]:
 
 def _remat(fn: Callable, cfg: ArchConfig) -> Callable:
     """``fn`` under activation checkpointing when ``cfg.remat == "full"``
-    and grad is enabled (the reference's ``jax.checkpoint``)."""
+    and grad is enabled (the reference's ``jax.checkpoint``).
+
+    The block's output (the residual stream) is constrained to the batch
+    layout ("batch", None, None), and so is its gradient: on DTensors this
+    keeps DTensor from carrying a sequence-sharded stream (and its
+    gradients) from block to block, whose ``(B*S, d)`` matmul folds have
+    no cheap sharding rule.  It is the identity on plain tensors.
+    """
+    def stream(x):
+        return constrain(x, "batch", None, None)
+
     if cfg.remat != "full":
-        return fn
+        return lambda *args: stream(fn(*args))
 
     def run(*args):
         if not torch.is_grad_enabled():
-            return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args,
-                                                 use_reentrant=False)
+            return stream(fn(*args))
+        return stream(torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False))
     return run
 
 
@@ -146,11 +166,15 @@ def attention_full(x, p, cfg: ArchConfig, pos, window, theta, *,
         v = L._split_heads(L.dot(kv_x, p["wv"], cfg), cfg.n_kv_heads)
         t = kv_x.shape[1]
         causal = False
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "heads", None)
     if _use_flash(s, t, impl):
-        o = flash_attention(q, k, v, causal, schedule, BLOCK, BLOCK,
-                            window, kv_valid, 0)
+        o = L.attend_heads(lambda q, k, v: flash_attention(
+            q, k, v, causal, schedule, BLOCK, BLOCK, window, kv_valid, 0),
+            q, k, v)
     else:
-        o = reference_attention(q, k, v, causal, window, kv_valid, 0)
+        o = L.attend_heads(lambda q, k, v: reference_attention(
+            q, k, v, causal, window, kv_valid, 0), q, k, v)
     o = L.dot(o.reshape(b, s, -1).to(L.cdt(cfg)), p["wo"], cfg)
     if cfg.attn_out_bias:
         o = o + p["bo"].to(o.dtype)
@@ -396,12 +420,49 @@ def masked_cross_entropy(logits, labels, vocab: int, mask=None
         logits = torch.where(pad, -1e30, logits)
     logz = torch.logsumexp(logits, -1)
     labels = _tensor(labels, logits.device, torch.long)
-    gold = torch.gather(logits, -1, labels[..., None])[..., 0]
+    gold = _gold(logits, labels)
     nll = logz - gold
     if mask is not None:
         mask = _tensor(mask, logits.device).float()
         return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     return torch.mean(nll)
+
+
+def _gold(logits, labels):
+    """``logits[..., labels]``.  On a DTensor whose vocab dim is sharded,
+    each device picks the labels inside its own vocab range and the
+    picks are summed over the sharding mesh dims (``local_map``):
+    DTensor's gather rule for a vocab-sharded operand does not cover this
+    shape."""
+    if not is_distributed(logits):
+        return torch.gather(logits, -1, labels[..., None])[..., 0]
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.parallel.sharding import sum_over
+
+    mesh, lp = logits.device_mesh, tuple(logits.placements)
+    last = logits.ndim - 1
+    vocab_dims = [i for i, pl in enumerate(lp) if pl.is_shard(last)]
+    lab_p = [Replicate() if pl.is_shard(last) else pl for pl in lp]
+    out_p = [Replicate() if pl.is_shard(last) else pl for pl in lp]
+    if not is_distributed(labels):
+        from torch.distributed.tensor import distribute_tensor
+        labels = distribute_tensor(labels, mesh, [Replicate()] * mesh.ndim)
+
+    def local(zl, lab):
+        r, coord = 0, mesh.get_coordinate()
+        for i in vocab_dims:
+            r = r * mesh.size(i) + coord[i]
+        idx = lab - r * zl.shape[-1]
+        inside = (idx >= 0) & (idx < zl.shape[-1])
+        g = torch.gather(zl, -1, idx.clamp(0, zl.shape[-1] - 1)[..., None])
+        return sum_over(torch.where(inside, g[..., 0], 0.0), mesh,
+                        vocab_dims)
+
+    return local_map(local, out_placements=out_p, in_placements=(list(lp),
+                     lab_p), device_mesh=mesh,
+                     redistribute_inputs=True)(logits, labels)
 
 
 def loss_fn(params, batch: Dict[str, Any], cfg: ArchConfig, impl="auto",
@@ -470,19 +531,18 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, accum: int = 1,
         if accum == 1:
             loss, grads = _value_and_grad(params, batch, cfg, impl, schedule)
         else:
-            def micro(x, i):
-                mb = x.shape[0] // accum
-                return x.reshape((accum, mb) + tuple(x.shape[1:]))[i]
+            leaves = dict(tree_leaves(params))
             grads, loss = None, torch.zeros((), device=_device(params))
             for i in range(accum):
-                mb = {k: micro(v, i) for k, v in batch.items()}
+                mb = {k: _microbatch(v, accum, i) for k, v in batch.items()}
                 l, g = _value_and_grad(params, mb, cfg, impl, schedule)
                 if grads is None:
-                    grads = {p: torch.zeros(t.shape, dtype=torch.float32,
-                                            device=t.device)
-                             for p, t in tree_leaves(g)}
+                    # f32 sums in the parameters' layout (their shards)
+                    grads = {p: torch.zeros_like(leaves[p],
+                                                 dtype=torch.float32)
+                             for p, _ in tree_leaves(g)}
                 for p, t in tree_leaves(g):
-                    grads[p].add_(t.float())
+                    grads[p].add_(placed_like(t, leaves[p]).float())
                 del g
                 loss = loss + l
             for t in grads.values():
@@ -495,6 +555,32 @@ def make_train_step(cfg: ArchConfig, opt_cfg: AdamWConfig, accum: int = 1,
         return params, opt_state, metrics
 
     return train_step
+
+
+def _microbatch(x, accum: int, i: int):
+    """Rows ``[i * mb, (i + 1) * mb)`` of a batch leaf, ``mb = B //
+    accum``: microbatch ``i`` of the reference's ``(accum, mb)`` reshape.
+
+    A DTensor's batch dim is sharded, and DTensor has no rule for
+    splitting a sharded dim into ``(accum, mb)``: the rows are sliced from
+    the gathered leaf and sharded again as the batch was, or left
+    replicated when ``mb`` does not divide over the batch axes.
+    """
+    mb = x.shape[0] // accum
+    if not is_distributed(x):
+        return x.reshape((accum, mb) + tuple(x.shape[1:]))[i]
+    from torch.distributed.tensor import Replicate
+
+    mesh = x.device_mesh
+    full = x.redistribute(mesh, [Replicate()] * mesh.ndim)
+    part = full[i * mb:(i + 1) * mb]
+    shards = 1
+    for j, pl in enumerate(x.placements):
+        if pl.is_shard(0):
+            shards *= mesh.size(j)
+    if mb % shards:
+        return part
+    return part.redistribute(mesh, x.placements)
 
 
 # ----------------------------------------------------------------- caches
@@ -561,9 +647,26 @@ def cache_shapes(cfg: ArchConfig, batch: int, cache_len: int
 
 def init_caches(cfg: ArchConfig, batch: int, cache_len: int,
                 device: DeviceLike = None) -> Dict[str, torch.Tensor]:
-    dev = resolve_device(device)
+    """Zero decode state on ``device`` (default the card); ``"meta"``
+    gives the reference's abstract caches (shapes and dtypes only)."""
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     return {k: torch.zeros(s, dtype=dt, device=dev)
             for k, (s, dt) in cache_shapes(cfg, batch, cache_len).items()}
+
+
+def cache_axes(cfg: ArchConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """Logical axes for each cache entry (KV seq sharded over ``model``)."""
+    shapes = cache_shapes(cfg, 2, 4)
+    out: Dict[str, Tuple[Optional[str], ...]] = {}
+    for k, (shape, _) in shapes.items():
+        if k in ("ssd", "conv", "wkv", "att_x", "ffn_x"):
+            out[k] = (None, "batch") + (None,) * (len(shape) - 2)
+        elif k.endswith("_scale"):
+            out[k] = (None, "batch", None)
+        else:
+            out[k] = (None, "batch", "kv_seq", None, None)
+    return out
 
 
 # -------------------------------------------------------------- decode step
@@ -729,10 +832,12 @@ def _attn_with_cache(h, lp_attn, cfg, pos_arr, w, th, impl, schedule):
         kk = L.apply_rope(kk, pos_arr, cfg, th)
     s = h.shape[1]
     if _use_flash(s, s, impl):
-        o = flash_attention(q, kk, vv, True, schedule, BLOCK, BLOCK, w,
-                            10 ** 9, 0)
+        o = L.attend_heads(lambda q, k, v: flash_attention(
+            q, k, v, True, schedule, BLOCK, BLOCK, w, 10 ** 9, 0),
+            q, kk, vv)
     else:
-        o = reference_attention(q, kk, vv, True, w, 10 ** 9, 0)
+        o = L.attend_heads(lambda q, k, v: reference_attention(
+            q, k, v, True, w, 10 ** 9, 0), q, kk, vv)
     o = L.dot(o.reshape(h.shape[0], s, -1).to(L.cdt(cfg)), lp_attn["wo"],
               cfg)
     if cfg.attn_out_bias:

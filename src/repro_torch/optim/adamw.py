@@ -9,7 +9,9 @@ tensors it was given, under ``torch.no_grad()``: it stands in for the
 reference's donated buffers (``jax.jit(..., donate_argnums=(0, 1))``), so
 a full-size step never holds two copies of the state.  It still returns
 ``(params', state', metrics)``; callers that need the old values keep a
-copy.
+copy.  On DTensor leaves (``launch/steps.py``) each gradient is first
+redistributed to its parameter's placements (a reduce-scatter under
+FSDP), so every in-place write keeps the shard it writes into.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.params import tree_leaves, tree_map
+from repro_torch.parallel.sharding import placed_like
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,14 +78,15 @@ def adamw_update(params: Any, grads: Any, state: Dict[str, Any],
         v_leaves = dict(tree_leaves(state["v"]))
         for path, p in tree_leaves(params):
             m, v = m_leaves[path], v_leaves[path]
-            g = g_leaves[path].float() * scale
-            m.copy_(cfg.b1 * m + (1.0 - cfg.b1) * g)
-            v.copy_(cfg.b2 * v + (1.0 - cfg.b2) * torch.square(g))
+            g = placed_like(g_leaves[path], p).float() * scale
+            m.copy_(placed_like(cfg.b1 * m + (1.0 - cfg.b1) * g, m))
+            v.copy_(placed_like(cfg.b2 * v + (1.0 - cfg.b2)
+                                * torch.square(g), v))
             del g
             pf = p.float()
             delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps) \
                 + cfg.weight_decay * pf
-            p.copy_((pf - lr * delta).to(p.dtype))
+            p.copy_(placed_like((pf - lr * delta).to(p.dtype), p))
             del pf, delta
         metrics = {"grad_norm": gnorm,
                    "lr": torch.as_tensor(lr, dtype=torch.float32,

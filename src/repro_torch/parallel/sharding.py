@@ -19,11 +19,23 @@ Repeated entries are allowed (``["cpu"] * 4``, ``["cuda:0"] * 2``): the
 batch is still split into that many shards, which then run one after
 another on the shared device.  On a machine with one device that holds
 the split to the single-device outcomes.
+
+The second half of the module is the reference's logical-axis rules
+(``ShardingRules`` ... ``named_sharding``).  Model code names tensor dims
+by *logical* axes ("batch", "embed", "heads", "ff", "vocab", "expert",
+"kv_seq", ...); a rules table maps them to mesh axes, and a dim that its
+mapped axes do not divide is replicated.  A spec is a tuple with one entry
+per dim (``None``, a mesh axis name, or a tuple of names), the reference's
+``PartitionSpec``.  The rules read only axis names and sizes, so they take
+the port's :class:`DeviceMesh` and a ``torch.distributed`` ``DeviceMesh``
+alike; :func:`spec_to_placements` and :func:`constrain` turn specs into
+``torch.distributed.tensor`` placements on the latter.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple, Union
+import dataclasses
+from typing import Any, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -190,3 +202,280 @@ def pair_devices(mesh: Mesh = None, device: DeviceLike = None,
             raise ValueError(f"device={str(want)!r} disagrees with mesh "
                              f"{[str(d) for d in parsed]}")
     return tuple(_pinned(resolve_device(d)) for d in parsed)
+
+
+# ------------------------------------------------------------ logical rules
+
+AxisVal = Union[None, str, Tuple[str, ...]]
+Spec = Tuple[AxisVal, ...]
+
+
+def mesh_axis_sizes(mesh) -> Dict[str, int]:
+    """``{axis name: size}`` of a port :class:`DeviceMesh` or of a
+    ``torch.distributed`` ``DeviceMesh`` (``mesh_dim_names`` and a shape
+    tuple).
+
+    >>> mesh_axis_sizes(DeviceMesh([["cpu"] * 2] * 4, ("data", "model")))
+    {'data': 4, 'model': 2}
+    """
+    names = getattr(mesh, "mesh_dim_names", None)
+    if names is not None:
+        return dict(zip(names, tuple(mesh.shape)))
+    return dict(mesh.shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardingRules:
+    mesh: Any
+    table: Dict[str, AxisVal]
+
+    def mesh_size(self, axis: AxisVal) -> int:
+        if axis is None:
+            return 1
+        if isinstance(axis, str):
+            axis = (axis,)
+        sizes = mesh_axis_sizes(self.mesh)
+        size = 1
+        for a in axis:
+            size *= sizes[a]
+        return size
+
+
+def default_rules(mesh, fsdp: bool = True) -> ShardingRules:
+    """The reference's table: batch over (``pod``, ``data``), FSDP over
+    ``data`` on the embed axis, TP / EP / KV-sequence over ``model``."""
+    names = tuple(mesh_axis_sizes(mesh))
+    batch_axes: Tuple[str, ...] = tuple(a for a in ("pod", "data")
+                                        if a in names)
+    table: Dict[str, AxisVal] = {
+        "batch": batch_axes or None,
+        "pairs": batch_axes or None,      # GED verification pairs
+        "seq": None,
+        "act_seq": "model",               # sequence-parallel activations
+        "kv_seq": "model",                # decode KV cache sequence sharding
+        "embed": ("data" if (fsdp and "data" in names) else None),
+        "heads": "model",
+        "qkv_flat": "model",              # flattened (H*hd) projections
+        "ff": "model",
+        "vocab": "model",
+        "expert": "model",
+        "conv": None,
+        "state": None,
+        "stage": ("pod" if "pod" in names else None),
+    }
+    return ShardingRules(mesh, table)
+
+
+_RULES: Optional[ShardingRules] = None
+
+
+def set_rules(rules: Optional[ShardingRules]) -> None:
+    """Install (or, with ``None``, remove) the rules :func:`constrain`
+    and :func:`logical_spec` read: a module global, one launch at a
+    time."""
+    global _RULES
+    _RULES = rules
+
+
+def get_rules() -> Optional[ShardingRules]:
+    return _RULES
+
+
+def logical_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
+                 rules: Optional[ShardingRules] = None) -> Spec:
+    """The spec of a tensor of ``shape`` with logical ``axes`` (``None``
+    = replicated): ``()`` without rules, and a dim that its mapped mesh
+    axes do not divide is replicated.
+
+    >>> r = default_rules(DeviceMesh([["cpu"] * 2] * 4, ("data", "model")))
+    >>> logical_spec((8, 6, 3), ("batch", "heads", "ff"), r)
+    ('data', 'model', None)
+    """
+    rules = rules or _RULES
+    if rules is None:
+        return ()
+    spec = []
+    for dim, name in zip(shape, axes):
+        mapped = None if name is None else rules.table.get(name)
+        if mapped is None or dim % rules.mesh_size(mapped) != 0:
+            spec.append(None)
+        else:
+            spec.append(mapped)
+    return canonical_spec(spec)
+
+
+def canonical_spec(spec: Sequence[AxisVal]) -> Spec:
+    """``spec`` in ``PartitionSpec``'s own form: a one-name tuple entry is
+    the name, an empty one ``None``.
+
+    >>> canonical_spec([("data",), ("pod", "data"), (), None])
+    ('data', ('pod', 'data'), None, None)
+    """
+    out = []
+    for entry in spec:
+        if isinstance(entry, (tuple, list)):
+            entry = (None if not entry else entry[0] if len(entry) == 1
+                     else tuple(entry))
+        out.append(entry)
+    return tuple(out)
+
+
+def spec_to_placements(spec: Spec, mesh, shape: Optional[Sequence[int]]
+                       = None) -> Tuple[Any, ...]:
+    """``torch.distributed.tensor`` placements, one per mesh dim, that lay
+    a tensor out as JAX's ``NamedSharding(mesh, P(*spec))`` does.
+
+    A dim mapped to a tuple of axes (``("pod", "data")``) is split
+    major-to-minor in the tuple's order; DTensor splits repeated
+    ``Shard(d)`` entries in mesh-dim order, so the tuple must follow the
+    mesh's axis order (the reference's tables always do).  A mesh axis no
+    dim names is ``Replicate()``.  With ``shape``, a dim its axes do not
+    divide raises: the port never emits an uneven ``Shard``.
+    """
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_axis_sizes(mesh))
+    sizes = mesh_axis_sizes(mesh)
+    placements = [Replicate() for _ in names]
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        axes = (entry,) if isinstance(entry, str) else tuple(entry)
+        idx = [names.index(a) for a in axes]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry!r} is not in the mesh's "
+                             f"axis order {tuple(names)!r}")
+        if shape is not None and shape[d] % int(np.prod(
+                [sizes[a] for a in axes])) != 0:
+            raise ValueError(f"dim {d} of size {shape[d]} does not divide "
+                             f"over {axes!r} ({sizes})")
+        for i in idx:
+            if not isinstance(placements[i], Replicate):
+                raise ValueError(f"mesh axis {names[i]!r} shards two dims "
+                                 f"in {spec!r}")
+            placements[i] = Shard(d)
+    return tuple(placements)
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec on a mesh, the port's ``jax.sharding.NamedSharding``."""
+    mesh: Any
+    spec: Spec
+
+    def placements(self, shape: Optional[Sequence[int]] = None):
+        return spec_to_placements(self.spec, self.mesh, shape)
+
+
+def named_sharding(rules: ShardingRules, shape: Sequence[int],
+                   axes: Sequence[Optional[str]]) -> NamedSharding:
+    return NamedSharding(rules.mesh, logical_spec(shape, axes, rules))
+
+
+def is_distributed(x) -> bool:
+    """True for a ``torch.distributed.tensor.DTensor``."""
+    return hasattr(x, "device_mesh") and hasattr(x, "placements")
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute to ``placements``; the gradient is redistributed to the
+    same placements, as JAX transposes a sharding constraint into the
+    same constraint on the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.placements = placements
+        return _to(x, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to(g, ctx.placements), None
+
+
+def _to(x, placements):
+    if tuple(x.placements) == tuple(placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def constrain(x, *axes: Optional[str]):
+    """The reference's ``with_sharding_constraint`` by logical axis names.
+
+    The identity without rules or on a plain tensor; a DTensor is
+    redistributed to the spec's placements on its own mesh (an all-gather,
+    all-reduce, reduce-scatter or local split, as the change needs), and
+    so is its gradient.
+    """
+    rules = _RULES
+    if rules is None or not is_distributed(x):
+        return x
+    spec = logical_spec(x.shape, axes, rules)
+    placements = spec_to_placements(spec, x.device_mesh)
+    if tuple(x.placements) == placements and not x.requires_grad:
+        return x
+    return _Constrain.apply(x, placements)
+
+
+def placed_like(x, ref):
+    """``x`` redistributed to ``ref``'s placements when both are DTensors
+    and differ (a gradient reduce-scattered onto its parameter's shards);
+    otherwise ``x`` itself."""
+    if not (is_distributed(x) and is_distributed(ref)) \
+            or tuple(x.placements) == tuple(ref.placements):
+        return x
+    return x.redistribute(ref.device_mesh, ref.placements)
+
+
+def reduce_partial(x):
+    """A DTensor with pending sums (``Partial`` placements, such as the
+    output of a row-parallel matmul) all-reduced to ``Replicate`` on those
+    mesh dims; its shards kept.  Plain tensors pass through.  The port
+    calls it where the residual stream enters a norm, so DTensor never
+    chooses to reduce-scatter the stream onto the sequence dim (whose
+    later ``(B*S, d)`` folds have no cheap sharding rule)."""
+    if not is_distributed(x) or not any(pl.is_partial()
+                                        for pl in x.placements):
+        return x
+    return _ReducePartial.apply(x)
+
+
+class _ReducePartial(torch.autograd.Function):
+    """Partial -> Replicate; the gradient passes in the layout it comes
+    (the logical value is unchanged, so is its gradient).  DTensor's own
+    backward would hand back a ``Partial`` of the forward's reduce kind,
+    which it cannot then add to gradients of another kind."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+
+        return x.redistribute(x.device_mesh, [
+            Replicate() if pl.is_partial() else pl for pl in x.placements])
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _SumOver(torch.autograd.Function):
+    """All-reduce (sum) of per-device partial values over mesh dims, inside
+    a ``local_map`` region.  The sum is replicated, so the gradient of each
+    device's contribution is the sum's gradient as it is."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        import torch.distributed._functional_collectives as funcol
+
+        for d in dims:
+            x = funcol.all_reduce(x, "sum", (mesh, d))
+        return funcol.wait_tensor(x) if dims else x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_over(x: torch.Tensor, mesh, dims: Sequence[int]) -> torch.Tensor:
+    """Sum a local tensor's per-device values over mesh ``dims`` (inside
+    ``local_map``); differentiable, with the gradient passed through."""
+    return _SumOver.apply(x, mesh, tuple(dims))
