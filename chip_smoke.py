@@ -6,6 +6,7 @@ toolkit (``nvcc``):
 
     python3 chip_smoke.py                 # every phase
     python3 chip_smoke.py --kernels-only  # build + kernel checks only
+    python3 chip_smoke.py --async-only    # build + the [async] phase only
     python3 chip_smoke.py --lm-only       # the [lm] phase only
     python3 chip_smoke.py --train-only    # the [train] phase only
     python3 chip_smoke.py --dryrun-only   # build + the [dryrun] phase only
@@ -59,7 +60,22 @@ nothing falls back to the CPU):
    same mix with every family fused (launch counts read around it; every
    kernel must launch), held field by field to the tuned run, to the
    unfused run and, on 16 pairs, to the CPU;
-8. ``[cache]``, the result cache in front of the engine: the main cell's
+8. ``[async]``, the search loop as CUDA graph replays, off the caller's
+   thread: on the main cell's 256 pairs (all four kernels fused) the
+   graph loop against the eager chunked loop at chunk lengths 1, 2, 4
+   and 8 in both modes (every output ``torch.equal``; the eager, first
+   (capturing) and cached graph walls; host flag reads; launches per
+   chunk equal, so replays are counted); host ops, launches, device us
+   and busy share per step of the graph loop beside the eager loop under
+   ``torch.profiler``; the wall from ``run_packed_async`` to its return
+   against the wall to ``result()``; ``"auto"`` on the 320-pair mix all
+   fused, with its graphs cached, with overlap on and off (outcomes
+   equal, ``overlap_saved_s`` > 0, the peak memory with the graph cache
+   in use); its ``compute`` wall at chunk lengths 1 and 8 (first and
+   cached) and on the eager loop at chunk lengths 1 and 2 (outcomes equal
+   the graph's); and the main cell's ``"cuda"`` engine on the eager loop,
+   its pairs/s beside ``[main]``'s, with the planning both pay;
+9. ``[cache]``, the result cache in front of the engine: the main cell's
    pairs twice on ``GedEngine("cuda", cache=True)`` (256 misses that
    launch the kernels, then 256 hits with no launch and no executor call,
    equal to the misses and to the uncached run; then ``verify`` misses
@@ -72,7 +88,7 @@ nothing falls back to the CPU):
    read here with 256 hits and no launch; and ``compile_cache_dir``, two
    child processes (``--compile-cache-child``) of which the first runs
    nvcc and the second loads its library;
-9. ``[faults]``, the anytime deadline contract and the degradation ladder:
+10. ``[faults]``, the anytime deadline contract and the degradation ladder:
    ``deadline_s=3600`` on the main cell's ``"cuda"`` run and the
    all-fused ``"auto"`` mix (outcomes and launch counts equal the runs
    without a deadline); ``deadline_s=0`` on ``"auto"`` (every answer
@@ -88,7 +104,7 @@ nothing falls back to the CPU):
    and ``host`` faults (sound answers); and the caches (a ``lock`` fault
    fails open, a timed-out call caches nothing, ``flush(deadline_s=0)``
    answers every ticket timed out, in order);
-10. ``[store]``, the corpus layer at the size of the AIDS antiviral
+11. ``[store]``, the corpus layer at the size of the AIDS antiviral
     screen database: 42,687 AIDS-like graphs (62 vertex labels, 3 edge
     labels, n in [10, 40]; seed 8), 16 of them queries with three
     ``perturb(q, k)`` near-duplicates each, k in [1, 3], in two
@@ -108,7 +124,7 @@ nothing falls back to the CPU):
     and a 2,000-graph sub-store (n in [8, 14], four queries with seven
     near-duplicates each) whose ``range_search(tau=2)`` and ``top_k(4)``
     hits on the card equal the same store's on the CPU;
-11. ``[serving]``, the GED services: ``GedVerificationService(
+12. ``[serving]``, the GED services: ``GedVerificationService(
     use_kernel=True)`` on the main cell's 256 pairs as requests at tau 4
     (every answer certified, equal field by field to a direct
     ``GedEngine("auto")`` with the service's options and in verdict to
@@ -123,7 +139,7 @@ nothing falls back to the CPU):
     ``top_k`` and ``search`` equal the sub-store's hits); and
     ``python -m repro_torch.launch.serve --mode ged`` in a child process
     (``certified: 100/100``);
-12. ``[sharded]``, multi-device placement: ``GedEngine("sharded")`` on
+13. ``[sharded]``, multi-device placement: ``GedEngine("sharded")`` on
     every visible card (one card: ``batch_multiple`` 1 and the fast
     path; outcomes equal ``[main]``'s ``"torch"``), ``"auto"`` on
     ``mesh=["cuda:0", "cuda:0"]`` all fused on the 320-pair mix (two
@@ -134,7 +150,7 @@ nothing falls back to the CPU):
     "cuda:0"])`` on the sub-store (buckets and batches multiples of 2,
     signatures byte-equal, hits equal the single-device store's), each
     wall beside the single-device one;
-13. ``[lm]``, the LM serving path (no TPU kernel lies on it: the
+14. ``[lm]``, the LM serving path (no TPU kernel lies on it: the
     reference's ``models/flash.py``, ``moe.py`` and ``ssm.py`` are pure
     JAX): qwen3-8b (36 layers, d 4096, about 8.19 B parameters, 32.8 GB
     in f32) and qwen2-moe-a2.7b (24 layers, d 2048, 64 experts of which
@@ -164,7 +180,7 @@ nothing falls back to the CPU):
     constructed pure-mamba2 stack among them) on the card against the
     port on the CPU with the same weights at f32 (logits and caches,
     ``generate``'s tokens equal);
-14. ``[train]``, LM training (no TPU kernel lies on it either: the
+15. ``[train]``, LM training (no TPU kernel lies on it either: the
     reference's ``optim/``, ``models/flash.py``'s custom VJP, ``moe.py``
     and ``ssm.py`` are plain JAX): gemma3-1b at full width and depth
     (792.9 M parameters, 12.69 GB of f32 params, grads and AdamW
@@ -186,7 +202,7 @@ nothing falls back to the CPU):
     config on the card against the CPU (``TRAIN_TOL``); and
     ``python -m repro_torch.launch.train`` (no ``--device``) at reduced
     scale in a child process;
-15. ``[dryrun]``, the launch layer's placement and dry run: on a one-rank
+16. ``[dryrun]``, the launch layer's placement and dry run: on a one-rank
     NCCL group (a ``file://`` store) and a ``(1, 1, 1)`` ``("pod",
     "data", "model")`` mesh on ``cuda:0``, ``launch.steps.build_train``
     for gemma3-1b at full size (``[train]``'s B = 8, S = 512, seed and
@@ -199,7 +215,7 @@ nothing falls back to the CPU):
     ``("data", "model")`` mesh of one NCCL process per card against the
     one-card run (unverified on a one-card machine); and
     ``python -m repro_torch.launch.dryrun`` in child processes (started
-    after the kernel checks, so they run on the host beside phases 4-14)
+    after the kernel checks, so they run on the host beside phases 4-15)
     on qwen3-8b ``train_4k`` (both meshes), qwen2-moe-a2.7b
     ``decode_32k`` and rwkv6-3b ``long_500k`` (abstract, on a fake
     process group of 256 or 512 ranks; qwen2-72b ``train_4k`` takes
@@ -207,7 +223,7 @@ nothing falls back to the CPU):
     (concrete on the card, launching ``reduced_top2``): each record's status,
     per-device FLOPs, useful-FLOPs ratio, collective and DCN bytes, peak
     bytes per device against 80 GB, bottleneck and wall;
-16. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
+17. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
     ``"auto"`` run, the fused store's, the services', the mesh
     ``"auto"`` run's and the ``ged-verify`` dry-run cell's), the card's
     name and power limit, and as the last line ``{"ok": true, "device":
@@ -929,6 +945,258 @@ def profile_launches(backend, pairs, vocab, iters: int = 16):
             "top_kernels_by_device_time": [
                 [name[:60], cnt / loops, us / loops]
                 for name, (cnt, us) in top]}
+
+
+# ------------------------------------------------------- asynchronous loop
+
+ASYNC_CHUNKS = (1, 2, 4, 8)  # chunk lengths held to the eager loop and timed
+ASYNC_PROFILE_ITERS = 16      # max_iters of the profiled graph and eager runs
+
+
+def graph_chunks(cfg, chunk, iterations):
+    """Chunks the graph loop runs on a batch whose last pair ends after
+    ``iterations`` steps: up to the first chunk whose flag reads done, and
+    the one enqueued behind it, within ``max_iters``."""
+    k = max(1, min(chunk, cfg.max_iters))
+    return min(-(-cfg.max_iters // k), -(-max(iterations, 1) // k) + 1)
+
+
+def loop_diff(before, after):
+    return {k: after[k] - before[k] for k in after}
+
+
+def profile_loop(run, args, steps):
+    """Host ops, launches, device us and busy share per executed step of
+    ``run(*args)`` (warm: a graph is already captured), from
+    ``torch.profiler`` on this thread."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    run(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(*args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    host_ops = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CPU
+                and e.cpu_parent is None]
+    if not kernels:
+        return {"steps": steps, "wall_us_per_step": wall * 1e6 / steps,
+                "launches_per_step": "not measured",
+                "device_busy_share": "not measured"}
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    return {"steps": steps, "wall_us_per_step": wall * 1e6 / steps,
+            "host_ops_per_step": len(host_ops) / steps,
+            "launches_per_step": len(kernels) / steps,
+            "device_us_per_step": busy_us / steps,
+            "device_busy_share": busy_us * 1e-6 / wall}
+
+
+def async_phase(pairs, vocab, auto_pairs, auto_vocab, auto_comp, auto_ver,
+                main_summ, auto_summ, smi):
+    """``[async]``: the graph loop against the eager chunked loop, the
+    asynchronous dispatch and ``"auto"``'s overlap on the card (module
+    docstring, phase 8).  ``main_summ`` / ``auto_summ`` are ``[main]``'s
+    ``"cuda"`` row and ``[auto]``'s summary.  Returns the phase's
+    summary."""
+    import functools
+    import torch
+    from repro_torch.core.engine import api as engine_api
+    from repro_torch.core.engine import search
+    from repro_torch.core.engine.search import EngineConfig
+    from repro_torch.core.engine.tensor_graphs import pack_pairs, to_device
+    from repro_torch.ged import KernelDispatch
+    from repro_torch.ged.exec import Executor
+    from repro_torch.kernels import ops as kops
+    t_phase = time.perf_counter()
+    summ = {"chunk": search.CHUNK, "device": smi}
+    fused = KernelDispatch(lsa_fused=True, bma_fused=True, merge_fused=True)
+    cfg = EngineConfig(pool=POOL, expand=EXPAND, max_iters=MAX_ITERS,
+                       dispatch=fused)
+    packed = pack_pairs(pairs, slots=32, vocab=vocab)
+    dp = to_device(packed, "cuda")
+    taus = torch.full((len(pairs),), TAU, device="cuda")
+
+    # 1. graph == eager chunked, every output, both modes, every chunk
+    # length; times of each (the graph's second run replays a cached
+    # graph); launches per chunk equal
+    rows = {}
+    for verification in (False, True):
+        mode = "verify" if verification else "compute"
+        for k in ASYNC_CHUNKS:
+            kops.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = search.run_eager(dp, taus, cfg, verification, chunk=k)
+            torch.cuda.synchronize()
+            t_eager = time.perf_counter() - t0
+            eager_launches = kops.launch_counts()
+            t0 = time.perf_counter()
+            first = search.run_graphed(dp, taus, cfg, verification, chunk=k)
+            t_first = time.perf_counter() - t0
+            kops.reset_launch_counts()
+            before = search.loop_counts()
+            t0 = time.perf_counter()
+            got = search.run_graphed(dp, taus, cfg, verification, chunk=k)
+            t_graph = time.perf_counter() - t0
+            loops = loop_diff(before, search.loop_counts())
+            graph_launches = kops.launch_counts()
+            for out in (first, got):
+                bad = [key for key in want
+                       if not torch.equal(out[key], want[key])]
+                assert not bad, f"[async] graph != eager ({mode}, k={k}): {bad}"
+            iters = int(want["iterations"].max())
+            eager_chunks = -(-iters // max(1, min(k, MAX_ITERS)))
+            chunks = graph_chunks(cfg, k, iters)
+            assert loops["replays"] == chunks and loops["captures"] == 0, \
+                (loops, chunks)
+            assert loops["flag_reads"] <= -(-iters // k) + 1, (loops, iters)
+            for name in KERNELS:
+                assert graph_launches[name] * eager_chunks == \
+                    eager_launches[name] * chunks, \
+                    (name, graph_launches, eager_launches, chunks)
+            assert all(v > 0 for v in graph_launches.values()), graph_launches
+            if not verification and k == ASYNC_CHUNKS[0]:
+                main_compute = want
+            rows[f"{mode}_k{k}"] = {
+                "loop_iterations": iters, "graph_chunks": chunks,
+                "flag_reads": loops["flag_reads"],
+                "eager_s": t_eager, "graph_first_s": t_first,
+                "graph_s": t_graph, "graph_launches": graph_launches}
+            log(f"[async] {mode} k={k}: graph == eager chunked on every "
+                f"output; " + json.dumps(rows[f"{mode}_k{k}"]) + f" ({smi})")
+    summ["loops"] = rows
+
+    # 2. host ops, launches, device us and busy share per step: graph
+    # beside eager, the same batch and chunk length, on this thread
+    pcfg = dataclasses.replace(cfg, max_iters=ASYNC_PROFILE_ITERS)
+    k = search.CHUNK
+    probe = search.run_eager(dp, taus, pcfg, False, chunk=k)
+    iters = int(probe["iterations"].max())
+    prof = {
+        "graph": profile_loop(
+            functools.partial(search.run_graphed, chunk=k),
+            (dp, taus, pcfg, False), graph_chunks(pcfg, k, iters) * k),
+        "eager": profile_loop(
+            functools.partial(search.run_eager, chunk=k),
+            (dp, taus, pcfg, False), -(-iters // k) * k)}
+    summ["profile"] = prof
+    for name, row in prof.items():
+        log(f"[async] profile {name} loop (k={k}, max_iters="
+            f"{ASYNC_PROFILE_ITERS}, {iters} loop iterations): "
+            + json.dumps(row) + f" ({smi})")
+
+    # 3. the dispatch returns before the batch ends
+    ex = Executor(device="cuda")
+    for attempt in range(2):             # the second replays a cached graph
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = ex.run_packed_async(packed, np.full(len(pairs), TAU),
+                                      cfg, False)
+        t_return = time.perf_counter() - t0
+        ready_at_return = pending.ready()
+        out = pending.result()
+        t_result = time.perf_counter() - t0
+    assert t_return < t_result and not ready_at_return, \
+        (t_return, t_result, ready_at_return)
+    for key, want_t in main_compute.items():
+        assert np.array_equal(out[key], want_t.cpu().numpy()), key
+    summ["dispatch"] = {"return_s": t_return, "result_s": t_result,
+                        "ready_at_return": ready_at_return}
+    log(f"[async] run_packed_async returned after {t_return:.6f} s "
+        f"(ready: {ready_at_return}); result() after {t_result:.6f} s "
+        f"({smi})")
+
+    # 4. "auto" on the mix all fused (a first run captures the mix's
+    # graphs): overlap on and off, timed with the graphs cached, and the
+    # peak memory with the cache in use
+    auto_on = functools.partial(auto_run, auto_pairs, auto_vocab, "cuda",
+                                dispatch=fused)
+    before = search.loop_counts()
+    _, _, _, t_cap_c, t_cap_v, _ = auto_on()
+    captured = loop_diff(before, search.loop_counts())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = search.loop_counts()
+    comp_on, ver_on, st_on, tc_on, tv_on, _ = auto_on()
+    loops = loop_diff(before, search.loop_counts())
+    peak = torch.cuda.max_memory_allocated()
+    comp_off, ver_off, st_off, tc_off, tv_off, _ = auto_on(overlap=False)
+    expect_same("[async] auto overlap on vs off", comp_on + ver_on,
+                comp_off + ver_off)
+    expect_same("[async] auto vs [auto]'s tuned run", comp_on + ver_on,
+                auto_comp + auto_ver)
+    assert st_on["overlap_saved_s"] > 0, st_on
+    summ["auto"] = {
+        "overlap_saved_s": st_on["overlap_saved_s"],
+        "overlap_off_saved_s": st_off["overlap_saved_s"],
+        "capturing_run_s": [t_cap_c, t_cap_v],
+        "captures": captured["captures"],
+        "compute_s": tc_on, "verify_s": tv_on,
+        "compute_s_overlap_off": tc_off, "verify_s_overlap_off": tv_off,
+        "compute_pairs_per_s": len(auto_pairs) / tc_on,
+        "verify_pairs_per_s": len(auto_pairs) / tv_on,
+        "dispatches": st_on["dispatches"], "batches_run": loops["batches"],
+        "captures_when_cached": loops["captures"],
+        "flag_reads_per_batch": loops["flag_reads"] / max(loops["batches"], 1),
+        "peak_allocated_bytes": peak, "graphs_cached": len(search.GRAPHS)}
+    log("[async] auto all fused: overlap on == off on every outcome field; "
+        + json.dumps(summ["auto"]) + f" ({smi})")
+
+    # 5. "auto" at each chunk length (compute; a first run captures), and
+    # on the eager loop at two chunk lengths (outcomes equal the graph's)
+    real = engine_api.run_batch
+    sweep = {}
+    try:
+        for k in (ASYNC_CHUNKS[0], ASYNC_CHUNKS[-1]):
+            engine_api.run_batch = functools.partial(search.run_graphed,
+                                                     chunk=k)
+            _, _, _, t_first, _, _ = auto_on()
+            _, _, _, t_c, _, _ = auto_on()
+            sweep[f"k{k}"] = {"first_compute_s": t_first, "compute_s": t_c}
+        for k in (1, 2):
+            engine_api.run_batch = functools.partial(search.run_eager,
+                                                     chunk=k)
+            c, v, _, t_c, t_v, _ = auto_on()
+            expect_same(f"[async] auto eager k={k} vs graph", c + v,
+                        comp_on + ver_on)
+            sweep[f"eager_k{k}"] = {"compute_s": t_c, "verify_s": t_v}
+    finally:
+        engine_api.run_batch = real
+    summ["auto_chunks"] = sweep
+    log("[async] auto compute s by chunk length (graph: first, cached; "
+        "eager outcomes == graph outcomes): " + json.dumps(sweep)
+        + f" ({smi})")
+
+    # 6. the main cell's "cuda" engine on the eager loop beside [main]'s
+    # graph loop, and the planning both pay
+    engine_api.run_batch = search.run_eager
+    try:
+        _, _, t_c, t_v = run_engine("cuda", pairs, "cuda", vocab)
+    finally:
+        engine_api.run_batch = real
+    from repro_torch.ged import build_plan
+    t0 = time.perf_counter()
+    build_plan(pairs, vocab=vocab)
+    plan_s = time.perf_counter() - t0
+    summ["main_pairs_per_s"] = {
+        "graph_compute": main_summ["compute_pairs_per_s"],
+        "graph_verify": main_summ["verify_pairs_per_s"],
+        "eager_compute": len(pairs) / t_c, "eager_verify": len(pairs) / t_v,
+        "planning_s": plan_s}
+    summ["auto_pairs_per_s"] = {
+        "graph_compute": auto_summ["compute_pairs_per_s"],
+        "graph_verify": auto_summ["verify_pairs_per_s"]}
+    log("[async] pairs/s: " + json.dumps(
+        {"main": summ["main_pairs_per_s"], "auto": summ["auto_pairs_per_s"]})
+        + f" ({smi})")
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log(f"[async] phase {summ['phase_s']:.1f} s ({smi})")
+    return summ
 
 
 # ---------------------------------------------------------- result cache
@@ -2293,6 +2561,8 @@ def timed_generate(params, cfg, prompt, max_new):
 def free_card():
     import gc
     import torch
+    from repro_torch.core.engine import search
+    search.clear_graphs()
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3273,7 +3543,7 @@ def multi_card_check(one_card_losses):
 
 def dryrun_phase(smi, children, out_dir):
     """The launch layer's placement on the card and its dry run (see the
-    module docstring, phase 15).  Returns (summary, reduced_top2
+    module docstring, phase 16).  Returns (summary, reduced_top2
     launches of the ged-verify cell)."""
     import torch
     import torch.distributed as dist
@@ -3406,6 +3676,23 @@ def main(argv) -> int:
 
     rng = np.random.default_rng(SEED)
     pairs, ks = aids_pairs(rng, PAIRS, 20, 30)
+    if "--async-only" in argv:        # iterate on the [async] phase alone
+        big, _ = aids_pairs(np.random.default_rng(SEED + 5), BIG_PAIRS,
+                            40, 60)
+        vocab, mix = label_vocab(pairs), pairs + big
+        run_engine("cuda", pairs[:8], "cuda", vocab, max_iters=4)
+        comp, ver, t_c, t_v = run_engine("cuda", pairs, "cuda", vocab)
+        main_row = summarize("cuda", comp, ver, [t_c], [t_v])
+        auto_c, auto_v, _, t_c, t_v, _ = auto_run(mix, label_vocab(mix),
+                                                  "cuda")
+        async_phase(pairs, vocab, mix, label_vocab(mix), auto_c, auto_v,
+                    main_row, {"compute_pairs_per_s": len(mix) / t_c,
+                               "verify_pairs_per_s": len(mix) / t_v}, smi)
+        log(f"[device] {smi}")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     checks = kernel_checks(pairs, 32, np.random.default_rng(SEED + 1), dev,
                            timed=True)
     for name, row in checks.items():
@@ -3504,6 +3791,11 @@ def main(argv) -> int:
         auto_summ, launches, auto_comp, auto_ver = auto_phase(
             pairs + big, ks + big_ks, tune_dir)
 
+        # ---- the search loop as graph replays, off the caller's thread --
+        async_summ = async_phase(pairs, vocab, pairs + big,
+                                 label_vocab(pairs + big), auto_comp,
+                                 auto_ver, summ["cuda"], auto_summ, smi)
+
         # ---- the result cache in front of the engine -------------------
         cache_summ = cache_phase(pairs, vocab, comp_c, ver_c, pairs + big,
                                  label_vocab(pairs + big), auto_comp, smi)
@@ -3546,7 +3838,7 @@ def main(argv) -> int:
             f"{tag} {p[k]}" for tag, p in phase_launches.items())
         + ") equal=True" for k in KERNELS))
     log(json.dumps({"main_path": summ, "auto_path": auto_summ,
-                    "cache_path": cache_summ, "faults_path": faults_summ,
+                    "async_path": async_summ, "cache_path": cache_summ, "faults_path": faults_summ,
                     "store_path": store_summ, "serving_path": serving_summ,
                     "sharded_path": sharded_summ, "lm_path": lm_summ,
                     "train_path": train_summ, "dryrun_path": dry_summ,

@@ -2,7 +2,7 @@
 
 The counterpart of ``repro/core/engine/search.py``.  Where the reference
 runs one ``lax.while_loop`` per pair, ``vmap``-ed across pairs in
-lockstep, this runs one Python loop over a ``(pairs, P, ...)`` pool:
+lockstep, this runs a loop of ``_step`` over a ``(pairs, P, ...)`` pool:
 every pair owns a fixed-capacity pool of search states kept **sorted by
 the strategy pop key** (AStar+: ``(lb, -level)``; DFS+: ``(-level, lb)``).
 Per iteration, for all pairs at once:
@@ -21,25 +21,47 @@ Per iteration, for all pairs at once:
 A pair that has finished is frozen: every carried tensor keeps its old
 value under the same done mask as the reference (``search.py:268-270``),
 so ``iterations``, ``expanded`` and ``floor`` match it, and a pair's
-result does not depend on how long the other pairs of its batch run.
-Termination is read on the host every iteration: the loop is bound by
-host dispatch, so the device has all but drained when the read comes.
+result does not depend on how long the other pairs of its batch run.  So
+steps past the point where every pair is done change nothing, and the
+loop reads its termination flag once per chunk of ``CHUNK`` steps, not
+every step: the outputs are the same for every chunk length.
+
+On the CPU (:func:`run_eager`) the chunks run eagerly and the flag is read
+before each one.  On the card (:func:`run_graphed`) a chunk is one
+replay of a CUDA graph of ``CHUNK`` chained steps over static carry and
+``PairConsts`` buffers (captured once per batch shape and kept in a small
+cache), and the flag of chunk ``j`` is copied into pinned host memory and
+read while chunk ``j + 1`` runs, so the host never leaves the device
+idle waiting for it.  A failed capture or replay raises; nothing falls
+back to the eager loop.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Union
+import threading
+from typing import Dict, List, NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.core.engine import bounds as eb
 from repro_torch.core.engine.tensor_graphs import DevicePairs
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.autotune import KernelDispatch, concrete_dispatch
 from repro_torch.parallel.ops import merge_sorted_topk, sort_by_key, tree_map
 
 INF = 3.0e8
 BIG = eb.BIG
+
+# search steps per termination read: one eager chunk on the CPU, one graph
+# replay on the card.  Chosen from card runs (PERF.md): with the read
+# pipelined, a longer chunk only adds frozen steps at the batch's end and
+# a longer capture, and no chunk length ran a cached batch faster than 1.
+CHUNK = 1
+# captured graphs kept for reuse when no batch holds them (each keeps its
+# static buffers and a private memory pool on the card)
+GRAPH_CACHE_SIZE = 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -226,15 +248,9 @@ def _step(pc: eb.PairConsts, cfg: EngineConfig, c: Carry, n: torch.Tensor,
         new_c, c)
 
 
-def run_batch(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
-              verification: bool) -> Dict[str, torch.Tensor]:
-    """Search every pair of a packed batch; the reference's ``_run_batch``.
-
-    Returns the same keys as the reference: ``ged`` (computation mode) or
-    ``similar`` (verification), ``exact``, ``lower_bound``,
-    ``upper_bound``, ``iterations``, ``expanded``, ``best_img`` and, in
-    computation mode, ``floor`` — one row per pair, on the batch's device.
-    """
+def _init(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
+          verification: bool):
+    """The pair constants, the root carry, ``n`` and ``taus`` of a batch."""
     qv, gv, qa, ga, order, n, n_vlabels, n_elabels = pairs
     npairs, N = qv.shape
     P = cfg.pool
@@ -264,13 +280,11 @@ def run_batch(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
               torch.zeros(npairs, dtype=torch.int32, device=dev),
               torch.zeros(npairs, dtype=torch.int32, device=dev),
               n == 0)
+    return pc, c, n, taus
 
-    for _ in range(cfg.max_iters):
-        if bool(c.done.all()):
-            break
-        c = _step(pc, cfg, c, n, taus, verification)
 
-    final = c
+def _finish(final: Carry, taus: torch.Tensor, cfg: EngineConfig,
+            verification: bool) -> Dict[str, torch.Tensor]:
     min_lb_end = torch.where(final.pool.valid, final.pool.lb, INF).amin(-1)
     truncated = (final.it >= cfg.max_iters) & (min_lb_end < final.ub)
     ged_val = final.ub
@@ -301,3 +315,243 @@ def run_batch(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
         "best_img": final.best_img,
         "floor": final.floor,
     }
+
+
+def _chunk_len(cfg: EngineConfig, chunk: int) -> int:
+    return max(1, min(int(chunk), cfg.max_iters))
+
+
+def run_batch(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
+              verification: bool) -> Dict[str, torch.Tensor]:
+    """Search every pair of a packed batch; the reference's ``_run_batch``.
+
+    Returns the same keys as the reference: ``ged`` (computation mode) or
+    ``similar`` (verification), ``exact``, ``lower_bound``,
+    ``upper_bound``, ``iterations``, ``expanded``, ``best_img`` and, in
+    computation mode, ``floor`` — one row per pair, on the batch's device.
+    On the card the loop runs as CUDA graph replays (:func:`run_graphed`)
+    and this returns once the outputs have landed; on the CPU it runs
+    eagerly (:func:`run_eager`).
+    """
+    if pairs.qv.device.type == "cuda":
+        return run_graphed(pairs, taus, cfg, verification)
+    return run_eager(pairs, taus, cfg, verification)
+
+
+def run_eager(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
+              verification: bool, chunk: int = CHUNK
+              ) -> Dict[str, torch.Tensor]:
+    """:func:`run_batch` as eager chunks of ``chunk`` steps, the done flag
+    read on the host before each chunk: at most ``ceil(iterations /
+    chunk) + 1`` reads a batch.  The CPU path, and on the card the
+    reference the graph loop is held to (and the dry run's op trace)."""
+    pc, c, n, taus = _init(pairs, taus, cfg, verification)
+    k = _chunk_len(cfg, chunk)
+    steps = 0
+    while steps < cfg.max_iters and not bool(c.done.all()):
+        for _ in range(k):
+            c = _step(pc, cfg, c, n, taus, verification)
+        steps += k
+    return _finish(c, taus, cfg, verification)
+
+
+def _leaves(c: Carry) -> List[torch.Tensor]:
+    return [*c.pool, *c[1:]]
+
+
+# what the graph loop did, process-wide: batches run, graphs captured,
+# replays, and host reads of a chunk's done flag
+LOOP_COUNTS: Dict[str, int] = {"batches": 0, "captures": 0, "replays": 0,
+                               "flag_reads": 0}
+_COUNTS_LOCK = threading.Lock()
+
+
+def _bump(**by: int) -> None:
+    with _COUNTS_LOCK:
+        for k, v in by.items():
+            LOOP_COUNTS[k] += v
+
+
+def loop_counts() -> Dict[str, int]:
+    with _COUNTS_LOCK:
+        return dict(LOOP_COUNTS)
+
+
+class _Graph:
+    """``k`` chained steps captured as one CUDA graph.
+
+    The static inputs are clones of the pair constants, ``n``, ``taus``
+    and the carry they were captured from; a replay advances the static
+    carry in place by ``k`` steps and leaves ``done.all()`` in
+    ``all_done``.  ``tally`` is the kernel launches one replay makes, as
+    the capture recorded them.  ``flags`` is pinned host memory for the
+    pipelined flag reads.  One batch holds a graph at a time.
+    """
+
+    def __init__(self, pc: eb.PairConsts, c: Carry, n: torch.Tensor,
+                 taus: torch.Tensor, cfg: EngineConfig, verification: bool,
+                 k: int):
+        self.pc = eb.PairConsts(*(t.clone() for t in pc[:10]),
+                                pc.n_vlabels, pc.n_elabels)
+        self.c = tree_map(torch.clone, c)
+        self.n, self.taus = n.clone(), taus.clone()
+        self.flags = torch.zeros(2, dtype=torch.bool, pin_memory=True)
+        self.graph = torch.cuda.CUDAGraph()
+        # other threads launch while this one captures (other batches,
+        # other shards): only this thread's calls are checked
+        with kops.capture_tally() as tally:
+            self.graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                out = self.c
+                for _ in range(k):
+                    out = _step(self.pc, cfg, out, self.n, self.taus,
+                                verification)
+                for s, o in zip(_leaves(self.c), _leaves(out)):
+                    s.copy_(o)
+                self.all_done = self.c.done.all()
+            except BaseException:
+                try:
+                    self.graph.capture_end()
+                except RuntimeError:
+                    pass        # the capture was already invalidated
+                raise
+            self.graph.capture_end()
+        self.tally = dict(tally)
+        _bump(captures=1)
+
+    def load(self, pc: eb.PairConsts, c: Carry, n: torch.Tensor,
+             taus: torch.Tensor) -> None:
+        """Copy a new batch's inputs into the static buffers."""
+        for s, x in zip([*self.pc[:10], *_leaves(self.c), self.n, self.taus],
+                        [*pc[:10], *_leaves(c), n, taus]):
+            s.copy_(x)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        kops.add_launches(self.tally)
+        _bump(replays=1)
+
+
+class _GraphCache:
+    """Idle captured graphs by key, least recently used first; at most
+    ``GRAPH_CACHE_SIZE``.  A batch takes a graph out and puts it back once
+    its outputs have landed, so two batches never share static buffers: a
+    second batch of the same key captures a graph of its own."""
+
+    def __init__(self):
+        self._idle: "collections.OrderedDict[int, Tuple[tuple, _Graph]]" = \
+            collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def take(self, key: tuple) -> Optional[_Graph]:
+        with self._lock:
+            for gid, (k, g) in self._idle.items():
+                if k == key:
+                    del self._idle[gid]
+                    return g
+        return None
+
+    def put(self, key: tuple, g: _Graph) -> None:
+        with self._lock:
+            self._idle[id(g)] = (key, g)
+            while len(self._idle) > GRAPH_CACHE_SIZE:
+                self._idle.popitem(last=False)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._idle.clear()
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._idle)
+
+
+GRAPHS = _GraphCache()
+
+
+def clear_graphs() -> None:
+    """Drop every idle captured graph (and with it its memory pool)."""
+    GRAPHS.clear()
+
+
+def run_graphed(pairs: DevicePairs, taus: torch.Tensor, cfg: EngineConfig,
+                verification: bool, chunk: int = CHUNK
+                ) -> Dict[str, torch.Tensor]:
+    """:func:`run_batch` on the card as replays of a CUDA graph of
+    ``chunk`` chained steps; returns once the outputs have landed.
+
+    Runs on the current stream, or on a side stream when that is the
+    default stream (a graph cannot be captured there).  A batch whose
+    shape has an idle graph in the cache loads its inputs into the
+    graph's buffers and replays it from the first chunk.  Otherwise the
+    first chunk runs eagerly (the warm-up a capture needs, and real
+    work), and the graph is captured while the device runs it, unless one
+    chunk is all the batch can take.  Chunk ``j``'s done flag is copied
+    to pinned memory behind it and read after chunk ``j + 1`` has been
+    enqueued.
+    """
+    dev = pairs.qv.device
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cur = torch.cuda.current_stream(dev)
+    side = cur == torch.cuda.default_stream(dev)
+    stream = torch.cuda.Stream(dev) if side else cur
+    if side:
+        stream.wait_stream(cur)
+        for t in (*pairs[:6], taus):
+            t.record_stream(stream)
+    k = _chunk_len(cfg, chunk)
+    total = -(-cfg.max_iters // k)
+    npairs, N = pairs.qv.shape
+    key = (dev.index, cfg, concrete_dispatch(cfg, N, dev), bool(verification),
+           k, npairs, N, int(pairs.n_vlabels), int(pairs.n_elabels))
+    with torch.cuda.device(dev), torch.cuda.stream(stream):
+        pc, c, n, taus = _init(pairs, taus, cfg, verification)
+        g = GRAPHS.take(key)
+        if g is not None:
+            g.load(pc, c, n, taus)
+            g.replay()
+            flag_src, c = g.all_done, g.c
+        else:
+            for _ in range(k):
+                c = _step(pc, cfg, c, n, taus, verification)
+            flag_src = c.done.all()
+            if total > 1:
+                g = _Graph(pc, c, n, taus, cfg, verification, k)
+        flags = g.flags if g is not None else torch.zeros(
+            1, dtype=torch.bool, pin_memory=True)
+
+        def flag(j: int) -> torch.cuda.Event:
+            flags[j % len(flags)].copy_(flag_src, non_blocking=True)
+            # the thread sleeps in synchronize(), leaving its core to the
+            # caller's host work
+            ev = torch.cuda.Event(blocking=True)
+            ev.record(stream)
+            return ev
+
+        ev, j, reads = flag(0), 0, 0
+        while True:
+            nxt = None
+            if j + 1 < total:
+                g.replay()
+                flag_src, c = g.all_done, g.c
+                nxt = flag(j + 1)
+            ev.synchronize()
+            reads += 1
+            if bool(flags[j % len(flags)]) or nxt is None:
+                break
+            ev, j = nxt, j + 1
+        # the outputs must not alias the graph's buffers, which the next
+        # batch of this shape overwrites
+        out = {name: v.clone() for name, v in
+               _finish(c, taus, cfg, verification).items()}
+        landed = torch.cuda.Event(blocking=True)
+        landed.record(stream)
+    landed.synchronize()
+    if side:
+        for v in out.values():
+            v.record_stream(cur)
+    if g is not None:
+        GRAPHS.put(key, g)
+    _bump(batches=1, flag_reads=reads)
+    return out

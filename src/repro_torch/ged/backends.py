@@ -323,10 +323,10 @@ class AutoBackend:
     ``stats``: ``pairs``, ``escalated``, ``host_solved``, ``batches``,
     ``dispatches``, ``overlap_saved_s`` (host seconds a batch spent in
     flight outside any blocking drain), ``survivors_rung_{k}``, and
-    ``degraded_host`` / ``timed_out_pairs`` once they happen.  The
-    search loop reads its termination flag every iteration, so on the card
-    a batch has finished when its dispatch returns and ``overlap_saved_s``
-    stays near 0.
+    ``degraded_host`` / ``timed_out_pairs`` once they happen.  On the
+    card a dispatch returns before its batch ends (the executor's worker
+    runs the search), so batches cook while the loop host-solves and
+    drains; on the CPU a dispatch returns a finished batch.
 
     The policy composes with any executor: a single-device
     :class:`~repro_torch.ged.exec.Executor` by default, a

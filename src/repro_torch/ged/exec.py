@@ -11,8 +11,10 @@ Backends (:mod:`repro_torch.ged.backends`) are policies; everything about
   :func:`repro_torch.parallel.sharding.pair_devices`): each batch is
   split into one contiguous shard per pair shard of the mesh.
 * :class:`PendingBatch` — the future :meth:`Executor.run_packed_async`
-  returns; :meth:`PendingBatch.ready` polls without blocking and
-  :meth:`PendingBatch.result` hands back numpy, shards in batch order.
+  returns, on the card before the batch ends (the search runs on the
+  device's worker thread and stream); :meth:`PendingBatch.ready` polls
+  without blocking and :meth:`PendingBatch.result` hands back numpy,
+  shards in batch order.
 * :func:`engine_outcome` — one :class:`GedOutcome` from a row of a result.
 * :class:`ResultCache` — the engine-level outcome cache keyed on canonical
   pair digests (:func:`graph_digest` / :func:`wl_digest`; label-vocab
@@ -63,6 +65,9 @@ from repro_torch.ged.results import GedOutcome, engine_mapping
 from repro_torch.kernels import _build, autotune
 from repro_torch.parallel.sharding import (DeviceMesh, Mesh, pair_devices,
                                           pairs_axes)
+
+# one shard of a dispatched batch: its outputs, or the worker running it
+Shard = Union[Dict[str, torch.Tensor], engine_api.BatchFuture]
 
 
 # ------------------------------------------------- persistent compile cache
@@ -120,16 +125,16 @@ def persistent_cache_stats() -> Dict[str, float]:
 class PendingBatch:
     """One dispatched-but-not-yet-drained engine invocation.
 
-    Wraps the dict of torch tensors a dispatch produced, or one such dict
-    per shard (a :class:`ShardedExecutor` batch, shards in batch order,
-    possibly on several devices).  On the card a CUDA event is recorded on
-    each shard's device's current stream when the batch is wrapped:
-    :meth:`ready` polls them without blocking, :meth:`result` blocks once
-    and caches the numpy conversion, the shards' rows concatenated in
-    batch order.  CPU tensors are always ready.  The search loop reads its
-    termination flag on the host every iteration, so on the card a batch
-    has all but finished by the time it is wrapped; ``ready`` is what the
-    overlapped ``auto`` backend polls all the same.
+    Wraps what a dispatch produced: a dict of torch tensors (a batch that
+    has already run, as on the CPU), a
+    :class:`~repro_torch.core.engine.api.BatchFuture` (a batch the
+    device's worker runs on the card), or a sequence of either, one per
+    shard (a :class:`ShardedExecutor` batch, shards in batch order,
+    possibly on several devices).  :meth:`ready` never blocks: it is true
+    once every shard's worker has finished, which on the card is once its
+    outputs have landed on the worker's stream.  :meth:`result` blocks
+    once, re-raises a worker's exception as it was raised, and caches the
+    numpy conversion, the shards' rows concatenated in batch order.
 
     ``check`` is the deterministic fault-injection hook of the
     materialisation window (the ``result`` site), run before the
@@ -149,38 +154,32 @@ class PendingBatch:
     array([0., 1.], dtype=float32)
     """
 
-    def __init__(self, tensors: Union[Dict[str, torch.Tensor],
-                                      Sequence[Dict[str, torch.Tensor]]],
-                 check=None, flags: Optional[Dict[str, float]] = None):
-        self._shards: Optional[List[Dict[str, torch.Tensor]]] = (
-            [tensors] if isinstance(tensors, dict) else list(tensors))
+    def __init__(self, tensors: Union[Shard, Sequence[Shard]], check=None,
+                 flags: Optional[Dict[str, float]] = None):
+        self._shards: Optional[List[Shard]] = (
+            [tensors] if isinstance(tensors, (dict, engine_api.BatchFuture))
+            else list(tensors))
         self._result: Optional[Dict[str, np.ndarray]] = None
         self._check = check
         self.flags: Dict[str, float] = {} if flags is None else flags
-        self._events = []
-        for shard in self._shards:
-            devices = {t.device for t in shard.values()}
-            if len(devices) == 1 and next(iter(devices)).type == "cuda":
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(next(iter(devices))))
-                self._events.append(event)
 
     def ready(self) -> bool:
         """True when every output has landed (never blocks)."""
-        return self._result is not None or all(e.query()
-                                               for e in self._events)
+        return self._result is not None or all(
+            s.ready() for s in self._shards
+            if isinstance(s, engine_api.BatchFuture))
 
     def result(self) -> Dict[str, np.ndarray]:
         """Block until the batch lands; numpy result dict (cached)."""
         if self._result is None:
             if self._check is not None:
                 self._check()
-            shards = self._shards
+            shards = [s.result() if isinstance(s, engine_api.BatchFuture)
+                      else s for s in self._shards]
             self._result = {k: np.concatenate([s[k].cpu().numpy()
                                                for s in shards])
                             for k in shards[0]}
             self._shards = None
-            self._events = []
         return self._result
 
 
@@ -242,9 +241,11 @@ class Executor:
         failure, or a transient one past ``max_retries``, counts
         ``fault_dispatch`` and propagates to the backend above (see
         :func:`~repro_torch.ged.faults.degradable`).  The port has no unfused step, so a
-        kernel failure is never retried with ``use_kernel=False``.  On a
-        clean dispatch this is the plain path: the ``try`` costs nothing
-        unless something raises.
+        kernel failure is never retried with ``use_kernel=False``.  On the
+        card the search runs on a worker after this returns, so a failure
+        there is raised by :meth:`PendingBatch.result`, as the reference's
+        materialisation failures are.  On a clean dispatch this is the
+        plain path: the ``try`` costs nothing unless something raises.
         """
         inj = faults.get_injector(ctx)
         retry = ctx.retry if ctx is not None else faults.RetryPolicy()
@@ -305,8 +306,13 @@ class Executor:
                                      ctx=ctx, rung=rung)
 
     def _dispatch(self, packed, taus, cfg, verification):
-        """Start the device work; a dict of torch tensors (or one per
-        shard) whose CUDA work may still be in flight."""
+        """Start the device work: on the card a
+        :class:`~repro_torch.core.engine.api.BatchFuture` (the search runs
+        on the device's worker, and this returns at once), on the CPU the
+        finished batch's dict of tensors (or one such per shard)."""
+        if self.device.type == "cuda":
+            return engine_api.start_packed(packed, taus, cfg, verification,
+                                           device=self.device)
         return engine_api.dispatch_packed(packed, taus, cfg, verification,
                                           device=self.device)
 
@@ -339,12 +345,16 @@ class ShardedExecutor(Executor):
     each shard runs once, on the first device of its replica group.  A
     batch (padded by :func:`repro_torch.ged.plan.pack_bucket` to
     ``batch_multiple``, the shard count) is cut into contiguous, equal
-    shards, shard ``i`` running :func:`dispatch_packed` on its device
-    with that device current.  One worker thread per distinct device runs
-    its shards in order (one distinct device: the caller's thread), and
-    the dispatch joins them before it returns, so a shard's failure is
-    raised inside the retry loop of :meth:`Executor._robust_dispatch`.
-    The search is per pair, so outcomes equal the single-device run's.
+    shards.  On the card shard ``i`` starts on its device's worker
+    (:func:`~repro_torch.core.engine.api.start_packed`) and the dispatch
+    returns one pending shard per device without waiting, so a shard's
+    failure is raised by :meth:`PendingBatch.result`.  On the CPU shard
+    ``i`` runs :func:`dispatch_packed` with its device current: one worker
+    thread per distinct device runs its shards in order (one distinct
+    device: the caller's thread), and the dispatch joins them before it
+    returns, so a shard's failure is raised inside the retry loop of
+    :meth:`Executor._robust_dispatch`.  The search is per pair, so
+    outcomes equal the single-device run's.
 
     Any policy composes with it: ``GedEngine("sharded")`` is the plain
     engine policy on this executor, ``GedEngine("auto", mesh=...)`` the
@@ -394,6 +404,16 @@ class ShardedExecutor(Executor):
                 f"{len(self._devices)} (GedEngine does this automatically)")
         size = packed.batch // len(self._devices)
         taus = np.asarray(taus, dtype=np.float32)
+        if self.device.type == "cuda":
+            # every shard starts on its device's worker; none is waited for
+            out: List[Shard] = []
+            for i, d in enumerate(self._devices):
+                lo = i * size
+                with _on(d):
+                    out.append(engine_api.start_packed(
+                        _rows(packed, lo, lo + size), taus[lo:lo + size],
+                        cfg, verification, device=d))
+            return out
         per_device: Dict[torch.device, List[int]] = {}
         for i, d in enumerate(self._devices):
             per_device.setdefault(d, []).append(i)

@@ -6,15 +6,18 @@ tensors it calls the plain PyTorch twin in :mod:`repro_torch.kernels.ref`;
 for CUDA tensors it launches the hand-written kernel on PyTorch's current
 stream, or raises — there is no fallback from a failed kernel to its twin.
 ``LAUNCHES`` counts kernel launches (never twin calls), so a run can show
-that its main path went through the kernels.  The shards of a
-multi-device batch launch from worker threads, so the counts change under
-a lock.
+that its main path went through the kernels.  A launch recorded into a
+CUDA graph under capture (:func:`capture_tally`) is not one: the capture
+tallies it, and each replay of the graph adds the tally
+(:func:`add_launches`).  Batches run on worker threads, so the counts
+change under a lock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Dict
+from typing import Dict, Iterator
 
 import torch
 
@@ -23,6 +26,8 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"reduced_top2": 0, "bma_cost_matrix": 0,
                             "lsa_children": 0, "merge_ranks": 0}
 _LAUNCHES_LOCK = threading.Lock()
+# the tally of the graph this thread is capturing, if any
+_CAPTURE = threading.local()
 
 
 def reset_launch_counts() -> None:
@@ -37,9 +42,33 @@ def launch_counts() -> Dict[str, int]:
 
 
 def _count(kernel: str) -> None:
-    """One launch of ``kernel``, counted under the lock."""
+    """One launch of ``kernel``, counted under the lock, or into the tally
+    of the graph this thread is capturing."""
+    tally = getattr(_CAPTURE, "tally", None)
+    if tally is not None:
+        tally[kernel] += 1
+        return
     with _LAUNCHES_LOCK:
         LAUNCHES[kernel] += 1
+
+
+@contextlib.contextmanager
+def capture_tally() -> Iterator[Dict[str, int]]:
+    """While a CUDA graph is captured on this thread: the kernels it
+    records, by name, instead of launches."""
+    prev = getattr(_CAPTURE, "tally", None)
+    _CAPTURE.tally = tally = {k: 0 for k in LAUNCHES}
+    try:
+        yield tally
+    finally:
+        _CAPTURE.tally = prev
+
+
+def add_launches(tally: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``tally``."""
+    with _LAUNCHES_LOCK:
+        for k, v in tally.items():
+            LAUNCHES[k] += v
 
 
 def _on_card(*xs: torch.Tensor) -> bool:

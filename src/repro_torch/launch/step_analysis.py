@@ -28,17 +28,23 @@ mode then sees) and counts them with the reference's rules
 Shape-inference calls DTensor makes on ``FakeTensor``s are not counted.
 Kernels launched through ``ctypes`` (the GED engine's ``reduced_top2``)
 are not aten ops and are not seen.  The mode also keeps the peak of the
-bytes live in tensors the step allocated (``peak_live_bytes``): each
-non-aliasing op output counts until it is freed.
+bytes live in tensors the step allocated (``peak_live_bytes``), as a
+function of the op trace alone, as the reference's buffer liveness is:
+each non-aliasing op output is an allocation, live from the op that
+makes it to its last use as an op's input (through any view of it);
+an allocation still reachable when the counter closes, after a
+``gc.collect()``, lives to the end.  When Python frees a tensor plays no
+part, so the peak is the same every run.
 """
 
 from __future__ import annotations
 
+import gc
 import math
 import time
 import weakref
 from collections import Counter
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -93,6 +99,12 @@ def _is_fake(t: torch.Tensor) -> bool:
     return type(t).__name__ == "FakeTensor"
 
 
+def _storage(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage, shared by its views (meta tensors
+    included, whose data pointers are all 0)."""
+    return t.untyped_storage()._cdata
+
+
 _INFO: Dict[Any, Tuple] = {}
 
 
@@ -127,7 +139,11 @@ class StepCounter(TorchDispatchMode):
         self.collective_count = 0.0
         self.ops: Counter = Counter()
         self.warnings: list = []
-        self.live = 0
+        # allocations by id: bytes, first and last op index, and weak
+        # references to the tensors (views included) that share it
+        self._n_ops = 0
+        self._alloc: List[List[Any]] = []
+        self._by_storage: Dict[int, int] = {}
         self.peak_live = 0
         self._pod_groups = set()
         self._groups = set()
@@ -153,21 +169,62 @@ class StepCounter(TorchDispatchMode):
         self._count(func, args, ins, outs)
         return out
 
-    def _free(self, nbytes: int) -> None:
-        self.live -= nbytes
+    def __exit__(self, *exc):
+        out = super().__exit__(*exc)
+        gc.collect()
+        self.peak_live = self._peak()
+        return out
+
+    def _owner(self, t: torch.Tensor):
+        """The allocation ``t`` shares storage with, if the step made it
+        and one of its tensors is alive (a dead one's storage address may
+        have been reused)."""
+        a = self._by_storage.get(_storage(t))
+        if a is None or not any(r() is not None for r in self._alloc[a][3]):
+            return None
+        return a
+
+    def _uses(self, ins, outs, fresh) -> None:
+        """Op ``self._n_ops`` reads ``ins`` and makes ``outs``;
+        ``fresh[j]`` is true where ``outs[j]`` is a new allocation (the
+        rest alias an input)."""
+        i = self._n_ops
+        for t in ins:
+            a = self._owner(t)
+            if a is not None:
+                self._alloc[a][2] = i
+        for t, new in zip(outs, fresh):
+            if new:
+                self._by_storage[_storage(t)] = len(self._alloc)
+                self._alloc.append([_nbytes(t), i, i, [weakref.ref(t)]])
+            else:
+                a = self._owner(t)
+                if a is not None:
+                    self._alloc[a][3].append(weakref.ref(t))
+
+    def _peak(self) -> int:
+        """The largest sum of live allocations over op indices."""
+        delta = [0] * (self._n_ops + 1)
+        for nb, first, last, refs in self._alloc:
+            delta[first] += nb
+            if not any(r() is not None for r in refs):
+                delta[last + 1] -= nb
+        live = peak = 0
+        for d in delta[:-1]:
+            live += d
+            peak = max(peak, live)
+        return peak
 
     def _count(self, func, args, ins, outs) -> None:
         ns, name, aliased, meta_only, pointwise = _info(func)
         self.ops[(ns, name)] += 1
+        fresh = [not meta_only and not (aliased[i] if i < len(aliased)
+                                        else False)
+                 for i in range(len(outs))]
+        self._uses(ins, outs, fresh)
+        self._n_ops += 1
         if meta_only:
             return                         # views: metadata only
-        fresh = [t for i, t in enumerate(outs)
-                 if not (aliased[i] if i < len(aliased) else False)]
-        for t in fresh:
-            nb = _nbytes(t)
-            self.live += nb
-            weakref.finalize(t, self._free, nb)
-        self.peak_live = max(self.peak_live, self.live)
 
         if ns in ("_c10d_functional", "c10d_functional", "c10d"):
             base = name.rstrip("_")

@@ -294,7 +294,7 @@ def build_ged(spec: GedShapeSpec, mesh, *, n_vlabels: int = 64,
     (``pairs_per_chip`` pairs) on ``device`` (default the card);
     ``in_shardings`` describe the whole batch over every mesh axis.
     """
-    from repro_torch.core.engine.search import EngineConfig, run_batch
+    from repro_torch.core.engine.search import EngineConfig, run_eager
     from repro_torch.core.engine.tensor_graphs import to_device
     from repro_torch.device import resolve_device
 
@@ -317,7 +317,9 @@ def build_ged(spec: GedShapeSpec, mesh, *, n_vlabels: int = 64,
 
     def fn(qv, gv, qa, ga, order, n, taus):
         batch = pairs._replace(qv=qv, gv=gv, qa=qa, ga=ga, order=order, n=n)
-        return run_batch(batch, taus, ec, spec.verification)
+        # the eager loop on every device: the dry run counts the ops each
+        # step dispatches, which a CUDA graph's replays would not show
+        return run_eager(batch, taus, ec, spec.verification)
 
     args = tuple(pairs[:6]) + (torch.as_tensor(taus, device=dev),)
     return CellPlan(

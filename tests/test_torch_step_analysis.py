@@ -128,3 +128,86 @@ def test_counter_ignores_what_runs_outside_it():
         torch.ones(4) + 1
     torch.ones(1000) * 2
     assert counter.costs()["flops"] == 4
+
+
+# ------------------------------------------------ peak live bytes (P4)
+
+def test_peak_live_bytes_follow_each_tensors_last_use():
+    """a -> b -> c with ``a`` dead after ``b``: the peak is a + b, at the
+    op that reads ``a`` last, though ``a`` stays bound until the step
+    returns."""
+    x = torch.ones(8, 64)
+
+    def chain(t):
+        a = t * 2                 # 8 * 64 * 4 bytes
+        b = a.sum(0)              # 64 * 4
+        c = b * 3                 # 64 * 4
+        return c
+
+    assert analyze_step(chain, (x,))["peak_live_bytes"] == \
+        8 * 64 * 4 + 64 * 4
+
+
+def test_peak_live_bytes_do_not_depend_on_when_python_collects():
+    """A tensor kept alive by a reference cycle dies at its last use
+    whether the cycle is collected in the step (a forced ``gc.collect()``)
+    or never (the collector off)."""
+    import gc
+
+    def step(t, collect):
+        a = t * 2
+        holder = [a]
+        holder.append(holder)     # a cycle: only the collector frees a
+        del a
+        b = holder[0].sum()
+        del holder
+        if collect:
+            gc.collect()
+        c = t * 3
+        return b + c.sum()
+
+    x = torch.ones(8, 64)
+    gc.disable()
+    try:
+        lazy = analyze_step(lambda t: step(t, False), (x,))
+    finally:
+        gc.enable()
+    forced = analyze_step(lambda t: step(t, True), (x,))
+    assert lazy["peak_live_bytes"] == forced["peak_live_bytes"] == \
+        4 + 8 * 64 * 4 + 4                   # b, c and c.sum()
+
+
+def test_reduced_cell_peak_is_the_same_every_run(monkeypatch):
+    """A reduced qwen3-8b prefill cell (meta tensors, as the dry run's
+    abstract cells), analysed twice: once with the collector off, once
+    with a ``gc.collect()`` forced inside every norm.  Same peak."""
+    import functools
+    import gc
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.shapes import ShapeSpec, input_specs
+    from repro_torch.launch.steps import _prefill_fn, abstract_params
+    from repro_torch.models import layers
+    from repro_torch.models.config import reduced
+
+    cfg = reduced(get_arch("qwen3-8b"), layers=3, d_model=64, vocab=512,
+                  d_ff=128, heads=4)
+    args = (abstract_params(cfg, torch.bfloat16),
+            input_specs(cfg, ShapeSpec("p", "prefill", 64, 8)))
+    fn = functools.partial(_prefill_fn, cfg=cfg, impl="auto",
+                           schedule="dense")
+    gc.disable()
+    try:
+        lazy = analyze_step(fn, args)
+    finally:
+        gc.enable()
+    norm = layers.norm
+
+    def collecting_norm(*a, **k):
+        gc.collect()
+        return norm(*a, **k)
+
+    monkeypatch.setattr(layers, "norm", collecting_norm)
+    forced = analyze_step(fn, args)
+    assert forced["peak_live_bytes"] == lazy["peak_live_bytes"] > 0
+    assert forced["flops"] == lazy["flops"]
