@@ -10,6 +10,8 @@ toolkit (``nvcc``):
     python3 chip_smoke.py --lm-only       # the [lm] phase only
     python3 chip_smoke.py --train-only    # the [train] phase only
     python3 chip_smoke.py --dryrun-only   # build + the [dryrun] phase only
+    python3 chip_smoke.py --distributed-only  # build + [distributed] only
+    python3 chip_smoke.py --distributed-only c  # ... group (c) alone
 
 The environment variables ``REPRO_GED_SHARED_CACHE_DIR``,
 ``REPRO_GED_COMPILE_CACHE_DIR`` and ``REPRO_GED_FAULT_INJECT`` are cleared
@@ -223,9 +225,25 @@ nothing falls back to the CPU):
     (concrete on the card, launching ``reduced_top2``): each record's status,
     per-device FLOPs, useful-FLOPs ratio, collective and DCN bytes, peak
     bytes per device against 80 GB, bottleneck and wall;
-17. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
+17. ``[distributed]``, ``GedEngine(mesh=)`` on ``torch.distributed``
+    meshes from ``repro_torch.launch.mesh``, each rank a child process
+    (``--distributed-rank-child``, so no process group is made beside
+    ``[dryrun]``'s): (a) two ``gloo`` ranks sharing ``cuda:0`` on a
+    ``(2, 1)`` ``("data", "model")`` mesh, ``"sharded"`` on the main
+    path's 256 pairs and ``"auto"`` with every kernel fused on the
+    320-pair mix, each rank's outcomes equal to ``[main]``'s ``"torch"``
+    and ``[auto]``'s all-fused run field by field, each rank's launch
+    counts (set to 0 after a warm-up run, read after the timed one) above
+    0 for all four kernels, per-rank walls, planning seconds and the
+    gather's ms a batch; (b) one NCCL rank on a ``(1, 1, 1)`` ``("pod",
+    "data", "model")`` mesh: ``"sharded"`` takes the fast path (no
+    gather), outcomes equal ``[main]``'s; (c) with several cards, one
+    NCCL rank a card, both paths (not run on one card); a failed rank
+    fails the script;
+18. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
     ``"auto"`` run, the fused store's, the services', the mesh
-    ``"auto"`` run's and the ``ged-verify`` dry-run cell's), the card's
+    ``"auto"`` run's, the ``ged-verify`` dry-run cell's and group (a)'s
+    ranks' in ``[distributed]``), the card's
     name and power limit, and as the last line ``{"ok": true, "device":
     {...}}``.
 
@@ -3615,6 +3633,222 @@ def dryrun_phase(smi, children, out_dir):
     return summ, ged_launches
 
 
+# ---------------------------------------------------- distributed meshes
+
+DISTRIBUTED_TIMEOUT = 420    # seconds for one group of rank processes
+# (ranks, process-group backend, mesh shape, mesh axes, "auto" too):
+# (a) two gloo ranks sharing cuda:0, (b) one NCCL rank on the fast path,
+# (c) one NCCL rank per card
+DISTRIBUTED_GROUPS = {
+    "a": (2, "gloo", (2, 1), ("data", "model"), True),
+    "b": (1, "nccl", (1, 1, 1), ("pod", "data", "model"), False),
+}
+
+
+def distributed_child(kind, rank, store, out):
+    """One rank of a ``[distributed]`` group (``--distributed-rank-child``):
+    ``"sharded"`` on ``[main]``'s pairs and, for groups that run it,
+    ``"auto"`` all fused on ``[auto]``'s mix, through ``GedEngine(mesh=)``
+    on a ``torch.distributed`` mesh from ``repro_torch.launch.mesh``; each
+    path once to warm up, then once with the launch counts set to 0
+    just before and read just after.  Pickles outcomes, walls, planning
+    seconds, executor counters and launches to ``out``."""
+    import datetime
+    import pickle
+    import torch
+    import torch.distributed as dist
+    from repro_torch import ged
+    from repro_torch.core.engine.tensor_graphs import label_vocab
+    from repro_torch.ged import api as ged_api
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.mesh import make_test_mesh
+    if kind == "c":
+        world, backend, shape, axes, with_auto = (
+            torch.cuda.device_count(), "nccl",
+            (torch.cuda.device_count(), 1), ("data", "model"), True)
+    else:
+        world, backend, shape, axes, with_auto = DISTRIBUTED_GROUPS[kind]
+    torch.cuda.set_device(rank if kind == "c" else 0)
+    dist.init_process_group(
+        backend, init_method=f"file://{store}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DISTRIBUTED_TIMEOUT))
+    try:
+        mesh = make_test_mesh(shape, axes, device_type="cuda")
+        pairs, _ = aids_pairs(np.random.default_rng(SEED), PAIRS, 20, 30)
+        big, _ = aids_pairs(np.random.default_rng(SEED + 5), BIG_PAIRS,
+                            40, 60)
+        vocab, mix_vocab = label_vocab(pairs), label_vocab(pairs + big)
+        fused = ged.KernelDispatch(lsa_fused=True, bma_fused=True,
+                                   merge_fused=True)
+        planning = [0.0]
+        build_plan = ged_api.build_plan
+
+        def timed_plan(*args, **kwargs):
+            t0 = time.perf_counter()
+            plan = build_plan(*args, **kwargs)
+            planning[0] += time.perf_counter() - t0
+            return plan
+
+        ged_api.build_plan = timed_plan
+
+        def sharded():
+            eng = []
+            comp, ver, tc, tv = run_engine("sharded", pairs, "cuda", vocab,
+                                           engine_out=eng, mesh=mesh)
+            rec["batch_multiple"] = eng[0].batch_multiple
+            return comp, ver, tc, tv, eng[0].stats
+
+        def auto():
+            comp, ver, stats, tc, tv, _ = auto_run(
+                pairs + big, mix_vocab, "cuda", mesh=mesh, dispatch=fused)
+            return comp, ver, tc, tv, stats
+
+        rec = {"rank": rank, "world": world, "backend": backend,
+               "shape": shape, "axes": axes, "device": str(
+                   torch.device("cuda", torch.cuda.current_device()))}
+        paths = {"sharded": sharded, **({"auto": auto} if with_auto
+                                        else {})}
+        for fn in paths.values():           # warm-up: captures, first shapes
+            fn()
+        kops.reset_launch_counts()
+        for name, fn in paths.items():
+            planning[0] = 0.0
+            comp, ver, tc, tv, stats = fn()
+            rec[name] = {
+                "outcomes": comp + ver, "compute_s": tc, "verify_s": tv,
+                "planning_s": planning[0],
+                "stats": {k: v for k, v in stats.items()
+                          if k.startswith("executor_") or k in (
+                              "dispatches", "host_solved")}}
+        rec["launches"] = kops.launch_counts()
+        Path(out).write_bytes(pickle.dumps(rec))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def distributed_group(kind, world, tmp):
+    """Start one group of rank processes and wait for it; each rank's
+    record, or an ``AssertionError`` naming the failed ranks (every
+    process is stopped either way)."""
+    import pickle
+    store = Path(tmp) / f"store_{kind}"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(Path(tmp) / f"{kind}{r}.log", "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--distributed-rank-child", kind, str(r), str(store),
+                 str(Path(tmp) / f"{kind}{r}.pkl")], cwd=ROOT, env=env,
+                stdout=logs[-1], stderr=subprocess.STDOUT))
+        t0 = time.perf_counter()
+        failed = []
+        for r, proc in enumerate(procs):
+            try:
+                rc = proc.wait(timeout=max(
+                    1, DISTRIBUTED_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = "timeout"
+            if rc != 0:
+                logs[r].seek(0)
+                failed.append((r, rc, logs[r].read()[-3000:]))
+        assert not failed, f"[distributed] ({kind}) ranks failed: {failed}"
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for f in logs:
+            f.close()
+    return [pickle.loads((Path(tmp) / f"{kind}{r}.pkl").read_bytes())
+            for r in range(world)]
+
+
+def distributed_phase(comp_t, ver_t, main_s, auto_comp, auto_ver, auto_s,
+                      smi, kinds="abc"):
+    """``GedEngine(mesh=)`` on ``torch.distributed`` meshes (see the module
+    docstring, phase 17): each group's ranks in child processes, outcomes
+    held to ``[main]``'s ``"torch"`` and ``[auto]``'s all-fused run.
+    ``kinds`` picks the groups.  Returns (summary, launches summed over
+    the ranks of group (a), or of the first group run)."""
+    import torch
+    t_phase = time.perf_counter()
+    groups = {k: v[0] for k, v in DISTRIBUTED_GROUPS.items() if k in kinds}
+    cards = torch.cuda.device_count()
+    if cards > 1 and "c" in kinds:
+        groups["c"] = cards
+    launches = None
+    summ = {"one_device_s": {"torch_compute_verify": main_s,
+                             "auto_all_fused_compute_verify": auto_s}}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, world in groups.items():
+            t0 = time.perf_counter()
+            recs = distributed_group(kind, world, tmp)
+            rows = []
+            for rec in recs:
+                row = {"rank": rec["rank"], "device": rec["device"]}
+                for name, want in (("sharded", comp_t + ver_t),
+                                   ("auto", auto_comp + auto_ver)):
+                    if name not in rec:
+                        continue
+                    got = rec[name]
+                    expect_same(f"[distributed] ({kind}) rank "
+                                f"{rec['rank']} {name}", got["outcomes"],
+                                want)
+                    no_fault_keys(f"distributed {name}", got["stats"])
+                    st = got["stats"]
+                    fast = st["executor_single_device_fastpath"]
+                    shards = rec["batch_multiple"]
+                    # the model axis has size 1: one pair shard a rank
+                    assert shards == world, (kind, shards)
+                    assert (fast > 0) == (shards == 1), (kind, name, st)
+                    assert (st.get("executor_gathers", 0) > 0) == \
+                        (shards > 1), (kind, name, st)
+                    gathers = st.get("executor_gathers", 0)
+                    row[name] = {
+                        "compute_s": got["compute_s"],
+                        "verify_s": got["verify_s"],
+                        "planning_s": got["planning_s"],
+                        "batch_multiple": shards,
+                        "executor_pairs": st["executor_pairs"],
+                        "dispatches": st.get("dispatches",
+                                             st["executor_calls"]),
+                        "fastpath_dispatches": fast, "gathers": gathers,
+                        "gather_ms_per_batch": (
+                            1e3 * st["executor_gather_wall_s"] / gathers
+                            if gathers else None)}
+                if "auto" in rec:
+                    missing = [k for k, v in rec["launches"].items()
+                               if v <= 0]
+                    assert not missing, (f"[distributed] ({kind}) rank "
+                                         f"{rec['rank']} never launched "
+                                         f"{missing}")
+                row["launches"] = rec["launches"]
+                rows.append(row)
+            summ[kind] = {"ranks": world, "backend": recs[0]["backend"],
+                          "mesh": [list(recs[0]["shape"]),
+                                   list(recs[0]["axes"])],
+                          "wall_s": time.perf_counter() - t0, "per_rank": rows}
+            log(f"[distributed] ({kind}) " + json.dumps(summ[kind])
+                + "; every rank's outcomes equal [main]'s \"torch\""
+                + (" and [auto]'s all-fused run" if "auto" in recs[0]
+                   else "") + f" ({smi})")
+            if launches is None:
+                launches = {k: sum(r["launches"][k] for r in recs)
+                            for k in KERNELS}
+    if cards == 1 and "c" in kinds:
+        summ["c"] = "not run: one card"
+        log("[distributed] (c) one NCCL rank per card: not run, one card")
+    summ["phase_s"] = time.perf_counter() - t_phase
+    log("[distributed] summary: " + json.dumps(
+        {"one_device_s": summ["one_device_s"], "phase_s": summ["phase_s"]})
+        + f" ({smi})")
+    return summ, launches
+
+
 # ----------------------------------------------------------------- main
 
 def main(argv) -> int:
@@ -3636,6 +3870,8 @@ def main(argv) -> int:
     if argv[:1] == ["--dryrun-rank-child"]:
         return multi_card_child(int(argv[1]), int(argv[2]), argv[3],
                                 argv[4])
+    if argv[:1] == ["--distributed-rank-child"]:
+        return distributed_child(argv[1], int(argv[2]), argv[3], argv[4])
     from repro_torch.core.engine.tensor_graphs import label_vocab
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build
@@ -3676,6 +3912,26 @@ def main(argv) -> int:
 
     rng = np.random.default_rng(SEED)
     pairs, ks = aids_pairs(rng, PAIRS, 20, 30)
+    if "--distributed-only" in argv:  # iterate on [distributed] alone
+        from repro_torch.ged import KernelDispatch
+        big, _ = aids_pairs(np.random.default_rng(SEED + 5), BIG_PAIRS,
+                            40, 60)
+        vocab, mix = label_vocab(pairs), pairs + big
+        run_engine("torch", pairs[:8], "cuda", vocab, max_iters=4)
+        comp_t, ver_t, tc, tv = run_engine("torch", pairs, "cuda", vocab)
+        fused = KernelDispatch(lsa_fused=True, bma_fused=True,
+                               merge_fused=True)
+        auto_c, auto_v, _, tac, tav, _ = auto_run(mix, label_vocab(mix),
+                                                  "cuda", dispatch=fused)
+        groups = argv[argv.index("--distributed-only") + 1:]
+        distributed_phase(comp_t, ver_t, [tc, tv], auto_c, auto_v,
+                          [tac, tav], smi, kinds=groups[0] if groups
+                          else "abc")
+        log(f"[device] {smi}")
+        log(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     if "--async-only" in argv:        # iterate on the [async] phase alone
         big, _ = aids_pairs(np.random.default_rng(SEED + 5), BIG_PAIRS,
                             40, 60)
@@ -3827,11 +4083,18 @@ def main(argv) -> int:
     # ---- the launch layer: placement on the card and the dry run -------
     dry_summ, dry_launches = dryrun_phase(smi, dry_children, dry_dir)
 
+    # ---- GedEngine on torch.distributed meshes, one process a rank -----
+    dist_summ, dist_launches = distributed_phase(
+        comp_t, ver_t, [statistics.median(times["torch"][0]),
+                        statistics.median(times["torch"][1])],
+        auto_comp, auto_ver, auto_summ["all_fused_s"], smi)
+
     phase_launches = {"auto": launches, "store": store_launches,
                       "serving": serving_launches,
                       "sharded": sharded_launches,
                       "dryrun": {k: (dry_launches if k == "reduced_top2"
-                                     else 0) for k in KERNELS}}
+                                     else 0) for k in KERNELS},
+                      "distributed": dist_launches}
     total = {k: sum(p[k] for p in phase_launches.values()) for k in KERNELS}
     log("[kernels] " + ", ".join(
         f"{k}: launches={total[k]} (" + ", ".join(
@@ -3842,6 +4105,7 @@ def main(argv) -> int:
                     "store_path": store_summ, "serving_path": serving_summ,
                     "sharded_path": sharded_summ, "lm_path": lm_summ,
                     "train_path": train_summ, "dryrun_path": dry_summ,
+                    "distributed_path": dist_summ,
                     "profile": {
         b: {k: v for k, v in row.items() if not k.startswith("top_")}
         for b, row in prof.items()}}))

@@ -49,7 +49,7 @@ from repro_torch.ged.faults import (Deadline, FaultInjector, RetryPolicy,
 from repro_torch.ged.plan import Vocab, as_graph, as_pairs, build_plan
 from repro_torch.ged.results import GedOutcome
 from repro_torch.kernels.autotune import autotune_stats, enable_autotune
-from repro_torch.parallel.sharding import Mesh
+from repro_torch.parallel.sharding import Mesh, is_distributed_mesh
 from repro_torch.store_io.shared_cache import (SHARED_CACHE_ENV,
                                                SharedResultCache)
 
@@ -85,7 +85,19 @@ class GedEngine:
         one device unless a mesh is given.  A bare nested or a mixed
         mesh, or a ``device`` that disagrees with it, raises
         ``ValueError``.  The other backends ignore it, as
-        in the reference.
+        in the reference.  It may also be a ``torch.distributed``
+        ``DeviceMesh`` (:mod:`repro_torch.launch.mesh`, one process per
+        card, as ``torchrun`` starts them), used SPMD: every rank builds
+        the engine at the same point and calls the same methods with the
+        same arguments in the same order.  Each rank searches its own
+        shard of every batch (sharded over ``pod`` x ``data``, else the
+        first axis) on its own device, and every rank returns the whole
+        batch's outcomes, the same on each rank and equal to the
+        one-device run's; a failure on one rank raises, or degrades, on
+        all of them, and deadlines are agreed.  The shared result-cache
+        tier is per machine, so ranks would answer from different entries:
+        it raises there (pass ``shared_cache_dir=""`` to turn off one set
+        in the environment).
     slots : pin every batch to this slot count instead of per-pair
         power-of-two bucketing.
     vocab : optional ``(vertex_labels, edge_labels)`` universe shared by
@@ -213,6 +225,11 @@ class GedEngine:
         self._cache = ResultCache(cache_size) if cache else None
         if shared_cache_dir is None:
             shared_cache_dir = os.environ.get(SHARED_CACHE_ENV) or None
+        if shared_cache_dir and is_distributed_mesh(mesh):
+            raise ValueError(
+                "the shared result-cache tier cannot serve the ranks of a "
+                "torch.distributed mesh: each would answer from different "
+                "entries; pass shared_cache_dir=''")
         self._shared = (SharedResultCache(str(shared_cache_dir))
                         if shared_cache_dir else None)
         self.shared_cache_dir = shared_cache_dir

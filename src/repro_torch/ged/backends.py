@@ -21,7 +21,11 @@ the executor (:mod:`repro_torch.ged.exec`) owns the device.
 * ``"sharded"`` — the ``"torch"`` policy on a
   :class:`~repro_torch.ged.exec.ShardedExecutor`: every batch split over
   the devices of a flat ``mesh``; the same outcomes as ``"torch"``.
-  ``"auto"`` given a ``mesh`` runs its rungs on one too.
+  ``"auto"`` given a ``mesh`` runs its rungs on one too.  On a
+  ``torch.distributed`` mesh the ranks agree on every decision that
+  reads a clock or ``ready()`` (:meth:`Executor.agree`) and take the
+  first rank's host solves (:func:`agreed_host_solve`), so each returns
+  the same outcomes.
 
 Backends take an optional ``ctx``
 (:class:`repro_torch.ged.faults.RunContext`): the deadline (a pair the
@@ -156,6 +160,45 @@ def host_solve(q, g, tau: Optional[float], verification: bool,
     return _host_compute_outcome(res, backend, wall, rung=rung)
 
 
+def agreed_host_solve(executor: Executor, q, g, tau: Optional[float],
+                      verification: bool, cfg: EngineConfig, backend: str,
+                      rung: int, ctx: Optional[faults.RunContext] = None
+                      ) -> GedOutcome:
+    """:func:`host_solve` on behalf of ``executor``'s ranks.
+
+    On a ``torch.distributed`` mesh (``executor.spmd``) the first rank
+    solves and every rank takes its outcome and the counters it bumped,
+    since a host search under a deadline reads each rank's own clock.
+    One process solves the pair itself.
+    """
+    if not executor.spmd:
+        return host_solve(q, g, tau, verification, cfg, backend, rung, ctx)
+    solved = []
+
+    def solve():
+        solved.append(True)
+        before = dict(ctx.stats) if ctx is not None else {}
+        o = host_solve(q, g, tau, verification, cfg, backend, rung, ctx)
+        after = ctx.stats if ctx is not None else {}
+        return o, {k: v - before.get(k, 0) for k, v in after.items()
+                   if v != before.get(k, 0)}
+
+    o, bumped = executor.from_root(solve)
+    if not solved and ctx is not None:
+        for k, v in bumped.items():
+            ctx.bump(k, v)
+    return o
+
+
+def deadline_passed(executor: Executor,
+                    ctx: Optional[faults.RunContext]) -> bool:
+    """Has ``ctx``'s deadline passed?  Each rank of a mesh reads its own
+    clock, so they agree first (one all-reduce); without a deadline this
+    makes no collective."""
+    return (ctx is not None and ctx.has_deadline
+            and executor.agree(ctx.expired())[0])
+
+
 class ExactBackend:
     """Paper-faithful host solver: always certified, yields mappings.
 
@@ -214,7 +257,7 @@ class EngineBackend:
         results: List[Optional[GedOutcome]] = [None] * len(plan.pairs)
         for bucket in plan.buckets:
             t0 = time.perf_counter()
-            if ctx is not None and ctx.expired():
+            if deadline_passed(self.executor, ctx):
                 # deadline gone: remaining buckets answer from the cheap
                 # admissible floor (one dispatch is the unit of work)
                 for gi in bucket.indices:
@@ -243,8 +286,9 @@ class EngineBackend:
                     if ctx is not None:
                         ctx.bump("degraded_host")
                     q, g = plan.pairs[gi]
-                    o = host_solve(
-                        q, g, float(taus[gi]) if verification else None,
+                    o = agreed_host_solve(
+                        self.executor, q, g,
+                        float(taus[gi]) if verification else None,
                         verification, cfg, self.name, 0, ctx)
                     o.stats["degraded"] = True
                     results[gi] = o
@@ -333,6 +377,10 @@ class AutoBackend:
     :class:`~repro_torch.ged.exec.ShardedExecutor` over ``mesh`` when one
     is given (what ``GedEngine("auto", mesh=...)`` builds), or an
     explicit ``executor=``.  Outcomes are the same whatever the placement.
+    On a ``torch.distributed`` mesh drains stay first in, first out, which
+    puts the ranks' gathers in one order; whether to host-solve while a
+    batch cooks and whether the deadline has passed are agreed over the
+    ranks, and host solves come from the first rank.
 
     >>> from repro_torch.ged.plan import build_plan
     >>> auto = AutoBackend(device="cpu")
@@ -393,8 +441,9 @@ class AutoBackend:
         def solve_host(gi: int) -> None:
             q, g = plan.pairs[gi]
             self.stats["host_solved"] += 1
-            o = host_solve(
-                q, g, float(taus[gi]) if verification else None,
+            o = agreed_host_solve(
+                self.executor, q, g,
+                float(taus[gi]) if verification else None,
                 verification, cfg, f"{self.name}/exact", -1, ctx)
             if gi in degraded:
                 o.stats["degraded"] = True
@@ -512,7 +561,7 @@ class AutoBackend:
         expired = False
         try:
             while queue or dispatchable or inflight or host_queue:
-                if ctx is not None and ctx.expired():
+                if deadline_passed(self.executor, ctx):
                     expired = True
                     break
                 refill()
@@ -521,9 +570,13 @@ class AutoBackend:
                     dispatch(*dispatchable.popleft())
                     refill()
                 if inflight:
-                    # host-solve while the oldest batch is in flight
-                    while host_queue and not inflight[0].pending.ready():
-                        if ctx is not None and ctx.expired():
+                    # host-solve while the oldest batch is in flight (on a
+                    # mesh: on any rank), until the deadline passes
+                    while host_queue:
+                        cooking, over = self.executor.agree(
+                            not inflight[0].pending.ready(),
+                            has_deadline and ctx.expired())
+                        if not cooking or over:
                             break
                         solve_host(host_queue.pop(0))
                     drain(inflight.popleft())

@@ -9,7 +9,10 @@ Backends (:mod:`repro_torch.ged.backends`) are policies; everything about
 * :class:`ShardedExecutor` — the same over several devices (a flat
   ``mesh`` or a named ``DeviceMesh``,
   :func:`repro_torch.parallel.sharding.pair_devices`): each batch is
-  split into one contiguous shard per pair shard of the mesh.
+  split into one contiguous shard per pair shard of the mesh.  On a
+  ``torch.distributed`` mesh each rank runs its own shard and a
+  :class:`GatheredBatch` hands every rank the whole batch
+  (:class:`RankGroup`).
 * :class:`PendingBatch` — the future :meth:`Executor.run_packed_async`
   returns, on the card before the batch ends (the search runs on the
   device's worker thread and stream); :meth:`PendingBatch.ready` polls
@@ -49,6 +52,7 @@ import contextlib
 import dataclasses
 import hashlib
 import os
+import pickle
 import time
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
@@ -63,8 +67,9 @@ from repro_torch.ged import faults
 from repro_torch.ged.plan import Bucket, Vocab, pack_bucket
 from repro_torch.ged.results import GedOutcome, engine_mapping
 from repro_torch.kernels import _build, autotune
-from repro_torch.parallel.sharding import (DeviceMesh, Mesh, pair_devices,
-                                          pairs_axes)
+from repro_torch.parallel.sharding import (DeviceMesh, Mesh, RankShard,
+                                          is_distributed_mesh, pair_devices,
+                                          pairs_axes, rank_shard)
 
 # one shard of a dispatched batch: its outputs, or the worker running it
 Shard = Union[Dict[str, torch.Tensor], engine_api.BatchFuture]
@@ -205,6 +210,23 @@ class Executor:
         """The devices a batch's shards run on, in shard order."""
         return (self.device,)
 
+    @property
+    def spmd(self) -> bool:
+        """Do the ranks of a process group run this executor together, so
+        that every decision a backend takes must be the same on each
+        (:class:`ShardedExecutor` on a ``torch.distributed`` mesh)?"""
+        return False
+
+    def agree(self, *flags: bool) -> Tuple[bool, ...]:
+        """Each flag, true where it is true on any rank of the executor's
+        group.  One process is its own group: the flags come back."""
+        return tuple(bool(f) for f in flags)
+
+    def from_root(self, fn):
+        """``fn()`` run on the group's first rank, its value on every
+        rank.  One process is its own group: it calls ``fn``."""
+        return fn()
+
     def pack(self, pairs, slots: int, vocab: Optional[Vocab]):
         """Pack ``pairs`` with this executor's batch-shape policy; returns
         ``(tensors, real_count)``."""
@@ -331,6 +353,165 @@ def _on(device: torch.device):
             else contextlib.nullcontext())
 
 
+def _portable(exc: BaseException) -> BaseException:
+    """``exc`` if it crosses a process intact (the same type and message
+    after pickling), else a ``RuntimeError`` naming its type and message.
+
+    >>> type(_portable(ValueError("x"))).__name__
+    'ValueError'
+    >>> str(_portable(faults.InjectedFault("dispatch")))
+    "injected permanent fault at 'dispatch'"
+    """
+    try:
+        copy = pickle.loads(pickle.dumps(exc))
+        if type(copy) is type(exc) and str(copy) == str(exc):
+            return exc
+    except Exception:
+        pass
+    return RuntimeError(f"{type(exc).__name__}: {exc}")
+
+
+# one gloo group per set of mesh ranks, remade when the default group is
+_RANK_GROUPS: Dict[Tuple[int, ...], tuple] = {}
+
+
+class RankGroup:
+    """The host collectives that keep the ranks of a ``torch.distributed``
+    mesh in step under a :class:`ShardedExecutor`.
+
+    They run over a ``gloo`` group of the mesh's ranks, whatever the
+    mesh's own backend: NCCL carries no CPU tensors, and what crosses is
+    small (a shard's output rows, about 160 bytes a pair at 32 slots, a
+    status and a few flags).  Making the group is a collective over the
+    default group, so every rank builds its executor at the same point;
+    the group is made once per set of ranks and default group.
+    ``stats`` (the executor's) counts ``gathers`` and ``gather_wall_s``.
+    """
+
+    def __init__(self, shard: RankShard, stats: Dict[str, float]):
+        import torch.distributed as dist
+        ranks = tuple(sorted(shard.ranks))
+        world = dist.group.WORLD
+        made = _RANK_GROUPS.get(ranks)
+        if made is None or made[0] is not world:
+            made = (world, dist.new_group(list(ranks), backend="gloo"))
+            _RANK_GROUPS[ranks] = made
+        self.group = made[1]
+        self.shard = shard
+        self.ranks = ranks
+        self.me = ranks.index(dist.get_rank())
+        self.stats = stats
+        stats.update(gathers=0, gather_wall_s=0.0)
+
+    def gather(self, rows: Optional[Dict[str, np.ndarray]],
+               failure: Optional[BaseException], flags: Dict[str, float]
+               ) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
+        """Exchange this rank's shard rows (or its failure) and flags.
+        Returns every shard's rows in batch order and each flag's largest
+        value over the ranks; if any rank failed, raises the first failed
+        rank's error, the same type and message, on every rank."""
+        import torch.distributed as dist
+        sent = None if failure is None else _portable(failure)
+        got: List[Optional[tuple]] = [None] * len(self.ranks)
+        t0 = time.perf_counter()
+        dist.all_gather_object(got, (self.shard.index, rows, sent,
+                                     dict(flags)), group=self.group)
+        self.stats["gathers"] += 1
+        self.stats["gather_wall_s"] += time.perf_counter() - t0
+        for r, (_, _, err, _) in enumerate(got):
+            if err is None:
+                continue
+            if r == self.me:
+                if sent is failure:
+                    raise failure
+                raise sent from failure
+            err.add_note(f"raised on rank {self.ranks[r]} of the mesh")
+            raise err from failure
+        first: Dict[int, Dict[str, np.ndarray]] = {}
+        merged: Dict[str, float] = {}
+        for index, part, _, fl in got:
+            first.setdefault(index, part)
+            for k, v in fl.items():
+                merged[k] = max(merged.get(k, v), v)
+        parts = [first[i] for i in range(self.shard.count)]
+        return ({k: np.concatenate([p[k] for p in parts]) for k in parts[0]},
+                merged)
+
+    def any(self, flags: Sequence[bool]) -> Tuple[bool, ...]:
+        """Each flag OR-ed over the ranks (one small all-reduce)."""
+        import torch.distributed as dist
+        t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return tuple(bool(v) for v in t.tolist())
+
+    def from_root(self, fn):
+        """``fn()`` on the first rank, broadcast; its error is raised on
+        every rank."""
+        import torch.distributed as dist
+        box: List[Optional[tuple]] = [None]
+        own: Optional[BaseException] = None
+        if self.me == 0:
+            try:
+                box[0] = (True, fn())
+            except Exception as exc:
+                own = exc
+                box[0] = (False, _portable(exc))
+        dist.broadcast_object_list(box, src=self.ranks[0], group=self.group)
+        ok, value = box[0]
+        if ok:
+            return value
+        if own is not None and value is own:
+            raise own
+        raise value from own
+
+
+class GatheredBatch(PendingBatch):
+    """The :class:`PendingBatch` of a rank of a ``torch.distributed``
+    mesh: this rank's shard, run locally (or the failure of its
+    dispatch), and a :class:`RankGroup` to gather it through.
+
+    :meth:`ready` stays local and never blocks.  :meth:`result` blocks:
+    it waits for the local shard, then exchanges every rank's rows and
+    status, so each rank holds the whole batch in batch order, or each
+    raises the first failed rank's error.  The fault ladder above then
+    takes the same step on every rank, and no rank is left waiting in a
+    collective that another has left.  ``flags`` become each flag's
+    largest value over the ranks.
+    """
+
+    def __init__(self, ranks: RankGroup, local: Optional[PendingBatch],
+                 failure: Optional[BaseException] = None):
+        super().__init__([], flags=local.flags if local is not None else {})
+        self._ranks = ranks
+        self._local = local
+        self._failure = failure
+        self._error: Optional[BaseException] = None
+
+    def ready(self) -> bool:
+        return (self._result is not None or self._local is None
+                or self._local.ready())
+
+    def result(self) -> Dict[str, np.ndarray]:
+        if self._error is not None:
+            raise self._error
+        if self._result is None:
+            rows, failure = None, self._failure
+            if self._local is not None:
+                try:
+                    rows = self._local.result()
+                except Exception as exc:
+                    failure = exc
+            try:
+                self._result, flags = self._ranks.gather(rows, failure,
+                                                         self.flags)
+            except Exception as exc:
+                self._error = exc
+                raise
+            self.flags.update(flags)
+            self._local = None
+        return self._result
+
+
 class ShardedExecutor(Executor):
     """Split each pair batch over the devices of ``mesh``.
 
@@ -361,6 +542,23 @@ class ShardedExecutor(Executor):
     escalation policy.  A one-device mesh is the single-device path
     (``stats["single_device_fastpath"]`` counts those dispatches).
 
+    ``mesh`` may also be a ``torch.distributed`` ``DeviceMesh``
+    (:func:`~repro_torch.parallel.sharding.is_distributed_mesh`, e.g.
+    from :mod:`repro_torch.launch.mesh`), one process per device, used
+    SPMD: every rank builds the executor at the same point (building it
+    makes a ``gloo`` group of the mesh's ranks, a collective) and calls
+    the same engine methods with the same arguments in the same order.
+    ``batch_multiple`` is the product of the pairs axes' sizes; each rank
+    runs its shard (:func:`~repro_torch.parallel.sharding.rank_shard`) on
+    its own device and returns a :class:`GatheredBatch`, whose
+    ``result()`` hands every rank the whole batch, or raises on every
+    rank the error of the first rank that failed.  Replicas along the
+    other axes compute the same rows.  Backends make every decision that
+    reads a clock or ``ready()`` through :meth:`agree`, and host solves
+    through :meth:`from_root`, so each rank returns the same outcomes.  A
+    mesh whose pairs axes have size 1 takes the fast path and makes no
+    collective; its ranks then decide alone, as one process each.
+
     >>> ex = ShardedExecutor(["cpu"] * 4)
     >>> ex.batch_multiple, ex.stats["single_device_fastpath"]
     (4, 0)
@@ -377,33 +575,76 @@ class ShardedExecutor(Executor):
     def __init__(self, mesh: Mesh = None,
                  axes: Optional[Sequence[str]] = None,
                  device: DeviceLike = None):
-        self._devices = pair_devices(mesh, device, axes)
+        self._shard: Optional[RankShard] = None
+        self._ranks: Optional[RankGroup] = None
+        if is_distributed_mesh(mesh):
+            self._shard = rank_shard(mesh, axes, device)
+            self._devices = (self._shard.device,)
+            self.axes = self._shard.axes
+        else:
+            self._devices = pair_devices(mesh, device, axes)
+            self.axes = (tuple(axes) if axes is not None
+                         else pairs_axes(mesh)
+                         ) if isinstance(mesh, DeviceMesh) else None
         self.mesh = mesh
-        self.axes = (tuple(axes) if axes is not None else pairs_axes(mesh)
-                     ) if isinstance(mesh, DeviceMesh) else None
         super().__init__(self._devices[0])
         self.stats["single_device_fastpath"] = 0
+        if self._shard is not None and self._shard.count > 1:
+            self._ranks = RankGroup(self._shard, self.stats)
 
     @property
     def batch_multiple(self) -> int:
+        if self._shard is not None:
+            return self._shard.count
         return len(self._devices)
 
     @property
     def devices(self) -> Tuple[torch.device, ...]:
         return self._devices
 
+    @property
+    def spmd(self) -> bool:
+        return self._ranks is not None
+
+    def agree(self, *flags: bool) -> Tuple[bool, ...]:
+        return (super().agree(*flags) if self._ranks is None
+                else self._ranks.any(flags))
+
+    def from_root(self, fn):
+        return fn() if self._ranks is None else self._ranks.from_root(fn)
+
+    def _robust_dispatch(self, packed, taus, cfg, verification, ctx,
+                         rung) -> PendingBatch:
+        if self._ranks is None:
+            return super()._robust_dispatch(packed, taus, cfg, verification,
+                                            ctx, rung)
+        # a rank whose dispatch failed still joins the batch's gather,
+        # which raises its error on every rank
+        try:
+            local = super()._robust_dispatch(packed, taus, cfg,
+                                             verification, ctx, rung)
+        except Exception as exc:
+            return GatheredBatch(self._ranks, None, exc)
+        return GatheredBatch(self._ranks, local)
+
     def _dispatch(self, packed, taus, cfg, verification):
-        if len(self._devices) == 1:
+        if len(self._devices) == 1 and self._ranks is None:
             # one shard: nothing to split
             self.stats["single_device_fastpath"] += 1
             return super()._dispatch(packed, taus, cfg, verification)
-        if packed.batch % len(self._devices):
+        shards = self.batch_multiple
+        if packed.batch % shards:
             raise ValueError(
                 f"batch {packed.batch} is not a multiple of the executor's "
-                f"{len(self._devices)} shards; pack with batch_multiple="
-                f"{len(self._devices)} (GedEngine does this automatically)")
-        size = packed.batch // len(self._devices)
+                f"{shards} shards; pack with batch_multiple="
+                f"{shards} (GedEngine does this automatically)")
+        size = packed.batch // shards
         taus = np.asarray(taus, dtype=np.float32)
+        if self._ranks is not None:
+            # this rank's rows only; GatheredBatch.result gathers the rest
+            lo = self._shard.index * size
+            return super()._dispatch(_rows(packed, lo, lo + size),
+                                     taus[lo:lo + size], cfg, verification)
         if self.device.type == "cuda":
             # every shard starts on its device's worker; none is waited for
             out: List[Shard] = []

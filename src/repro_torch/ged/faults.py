@@ -147,6 +147,10 @@ class InjectedFault(RuntimeError):
         self.site = site
         self.transient = transient
 
+    def __reduce__(self):
+        # pickled intact, so the ranks of a mesh can raise one another's
+        return type(self), (self.site, self.transient)
+
 
 _SITES = frozenset({"dispatch", "kernel", "result", "lock", "host"})
 

@@ -68,6 +68,7 @@ from repro_torch.ged.plan import (Plan, Vocab, as_graph, graphs_vocab,
                                   merge_vocab)
 from repro_torch.ged.results import (STAGE_BOUND, STAGE_FILTER, STAGE_INDEX,
                                      STAGE_VERIFY, GedOutcome, SearchHit)
+from repro_torch.parallel.sharding import is_distributed_mesh
 
 _INF = float("inf")
 _ZERO16 = b"\x00" * 16
@@ -184,6 +185,11 @@ class GraphStore:
                      engine_options: Dict) -> None:
         executor = getattr(getattr(engine, "_backend", None), "executor",
                            None)
+        if is_distributed_mesh(mesh) or is_distributed_mesh(
+                getattr(executor, "mesh", None)):
+            raise TypeError(
+                "a GraphStore over a torch.distributed mesh is not ported "
+                "yet; give it a flat device list or a DeviceMesh")
         placed = device is not None and executor is not None
         if engine is not None and (backend != "auto" or placed
                                    or mesh is not None or engine_options):

@@ -11,7 +11,11 @@ named JAX mesh (``parallel/sharding.py::pairs_axes`` with
   ``(4, 2)`` ``("data", "model")`` mesh.  Pairs are sharded over its
   pairs axes (:func:`pairs_axes`, or the ``axes`` a caller names) and
   replicated over the rest.  Replicas compute the same rows, so shard
-  ``i`` runs on the first device of its replica group only.
+  ``i`` runs on the first device of its replica group only;
+* a ``torch.distributed`` ``DeviceMesh`` (:func:`is_distributed_mesh`),
+  one process per device: each rank runs the shard its coordinate over
+  the pairs axes names (:func:`rank_shard`) on its own device, and
+  replicas compute the same rows.
 
 A bare nested list has no axis names and raises.
 
@@ -95,13 +99,24 @@ def _grid(devices) -> Tuple[Tuple[int, ...], list]:
 
 def pairs_axes(mesh: DeviceMesh) -> Tuple[str, ...]:
     """The mesh axes that carry GED pairs, by the reference's rule: those
-    of ``("pod", "data")`` the mesh has, else its first axis.
+    of ``("pod", "data")`` the mesh has, else its first axis.  Takes a
+    ``torch.distributed`` ``DeviceMesh`` too (:func:`is_distributed_mesh`).
 
     >>> pairs_axes(DeviceMesh([["cpu"] * 2] * 2, ("x", "model")))
     ('x',)
     """
-    found = tuple(a for a in ("pod", "data") if a in mesh.axis_names)
-    return found or (mesh.axis_names[0],)
+    names = _axis_names(mesh)
+    found = tuple(a for a in ("pod", "data") if a in names)
+    return found or (names[0],)
+
+
+def _axis_names(mesh) -> Tuple[str, ...]:
+    if not is_distributed_mesh(mesh):
+        return mesh.axis_names
+    if mesh.mesh_dim_names is None:
+        raise ValueError("a torch.distributed mesh that carries pairs needs "
+                         "mesh_dim_names")
+    return tuple(mesh.mesh_dim_names)
 
 
 def mesh_shard_devices(mesh: DeviceMesh,
@@ -202,6 +217,77 @@ def pair_devices(mesh: Mesh = None, device: DeviceLike = None,
             raise ValueError(f"device={str(want)!r} disagrees with mesh "
                              f"{[str(d) for d in parsed]}")
     return tuple(_pinned(resolve_device(d)) for d in parsed)
+
+
+# ----------------------------------------------- torch.distributed meshes
+
+def is_distributed_mesh(mesh) -> bool:
+    """Is ``mesh`` a ``torch.distributed`` ``DeviceMesh`` (one process per
+    device, as ``repro_torch.launch.mesh`` builds them) rather than a flat
+    device list or the port's own :class:`DeviceMesh`?  Read from the
+    object (``mesh_dim_names`` and ``get_coordinate``), so that importing
+    this module creates no process-group state.
+
+    >>> is_distributed_mesh(DeviceMesh([["cpu"] * 2] * 2, ("data", "model")))
+    False
+    >>> is_distributed_mesh(["cpu"] * 2), is_distributed_mesh(None)
+    (False, False)
+    """
+    return (not isinstance(mesh, DeviceMesh)
+            and hasattr(mesh, "mesh_dim_names")
+            and hasattr(mesh, "get_coordinate"))
+
+
+@dataclasses.dataclass(frozen=True)
+class RankShard:
+    """This process's share of a pair batch split over a ``torch.distributed``
+    mesh: shard ``index`` of ``count`` (the product of the pairs axes'
+    sizes), run on ``device``; ``ranks`` are the mesh's global ranks."""
+
+    axes: Tuple[str, ...]
+    index: int
+    count: int
+    device: torch.device
+    ranks: Tuple[int, ...]
+
+
+def rank_shard(mesh, axes: Optional[Sequence[str]] = None,
+               device: DeviceLike = None) -> RankShard:
+    """This rank's pair shard on a ``torch.distributed`` ``DeviceMesh``.
+
+    Pairs run over ``axes`` (default :func:`pairs_axes`: ``pod`` x
+    ``data``, else the first axis) and are replicated over the rest, as
+    under the reference's ``shard_map``: the shard index is the rank's
+    coordinate over ``axes``, row-major in their order.  The local device
+    is ``cuda:{torch.cuda.current_device()}`` on a ``"cuda"`` mesh (a
+    launch sets it from the local rank) and the CPU otherwise; a
+    ``device`` that disagrees with it raises ``ValueError``, as does a
+    rank outside the mesh.
+    """
+    names = _axis_names(mesh)
+    axes = pairs_axes(mesh) if axes is None else tuple(axes)
+    unknown = [a for a in axes if a not in names]
+    if unknown or len(set(axes)) != len(axes) or not axes:
+        raise ValueError(f"axes {axes!r} must be distinct names of the "
+                         f"mesh's axes {names!r}")
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValueError("this rank is not a member of the mesh")
+    sizes = dict(zip(names, tuple(mesh.shape)))
+    index = int(np.ravel_multi_index(
+        tuple(coord[names.index(a)] for a in axes),
+        tuple(sizes[a] for a in axes)))
+    count = int(np.prod([sizes[a] for a in axes]))
+    local = (torch.device("cuda", torch.cuda.current_device())
+             if mesh.device_type == "cuda" else torch.device("cpu"))
+    if device is not None:
+        want = torch.device(device)
+        if want.type != local.type or (want.index is not None
+                                       and want.index != local.index):
+            raise ValueError(f"device={str(want)!r} disagrees with the "
+                             f"mesh's local device {str(local)!r}")
+    ranks = tuple(int(r) for r in mesh.mesh.reshape(-1).tolist())
+    return RankShard(axes, index, count, resolve_device(local), ranks)
 
 
 # ------------------------------------------------------------ logical rules

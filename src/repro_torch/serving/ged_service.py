@@ -160,7 +160,11 @@ class GedVerificationService:
 
     Rides the overlapped rung path by default; ``mesh=`` splits every
     rung's batches over several devices, ``overlap=False`` forces the
-    sequential rung loop.  ``device`` defaults to the card.  Example::
+    sequential rung loop.  A ``torch.distributed`` mesh goes to the
+    engine as it is: every rank builds the service and sends it the same
+    requests, each searches its shard, and each returns every answer
+    (:class:`~repro_torch.ged.GedEngine`'s ``mesh``); a corpus cannot be
+    registered on one yet.  ``device`` defaults to the card.  Example::
 
         svc = GedVerificationService(batch_size=128, use_kernel=True)
         outs = svc.verify([GedRequest(q, g, tau=4.0), ...])
