@@ -12,6 +12,7 @@ toolkit (``nvcc``):
     python3 chip_smoke.py --dryrun-only   # build + the [dryrun] phase only
     python3 chip_smoke.py --distributed-only  # build + [distributed] only
     python3 chip_smoke.py --distributed-only c  # ... group (c) alone
+    python3 chip_smoke.py --distributed-only d  # ... group (d) alone
 
 The environment variables ``REPRO_GED_SHARED_CACHE_DIR``,
 ``REPRO_GED_COMPILE_CACHE_DIR`` and ``REPRO_GED_FAULT_INJECT`` are cleared
@@ -225,9 +226,10 @@ nothing falls back to the CPU):
     (concrete on the card, launching ``reduced_top2``): each record's status,
     per-device FLOPs, useful-FLOPs ratio, collective and DCN bytes, peak
     bytes per device against 80 GB, bottleneck and wall;
-17. ``[distributed]``, ``GedEngine(mesh=)`` on ``torch.distributed``
-    meshes from ``repro_torch.launch.mesh``, each rank a child process
-    (``--distributed-rank-child``, so no process group is made beside
+17. ``[distributed]``, ``GedEngine(mesh=)`` and ``GraphStore(mesh=)`` on
+    ``torch.distributed`` meshes from ``repro_torch.launch.mesh``, each
+    rank a child process (``--distributed-rank-child``, so no process
+    group is made beside
     ``[dryrun]``'s): (a) two ``gloo`` ranks sharing ``cuda:0`` on a
     ``(2, 1)`` ``("data", "model")`` mesh, ``"sharded"`` on the main
     path's 256 pairs and ``"auto"`` with every kernel fused on the
@@ -237,13 +239,30 @@ nothing falls back to the CPU):
     0 for all four kernels, per-rank walls, planning seconds and the
     gather's ms a batch; (b) one NCCL rank on a ``(1, 1, 1)`` ``("pod",
     "data", "model")`` mesh: ``"sharded"`` takes the fast path (no
-    gather), outcomes equal ``[main]``'s; (c) with several cards, one
-    NCCL rank a card, both paths (not run on one card); a failed rank
+    gather), outcomes equal ``[main]``'s, and the 2,000-graph sub-store
+    of ``[store]`` ingested on the mesh (fast path, no gather; its
+    ``range_search(tau=2)`` and ``top_k(4)`` hits equal ``[store]``'s);
+    (c) with several cards, one NCCL rank a card, both paths (not run on
+    one card); (d) ``GraphStore(mesh=)`` on two ``gloo`` ranks sharing
+    ``cuda:0`` on a ``(2, 1)`` ``("data", "model")`` mesh: ``[store]``'s
+    fused 42,687-graph snapshot opened on the mesh (each rank holds
+    ``ceil(rows / 2)`` rows of every stage-0 bucket) and searched at tau
+    2 and 4 (each rank's hits equal ``[store]``'s fused hits field by
+    field; every kernel launches on each rank; per-rank queries/s, stage
+    walls and the stage-0 gathers' ms), then the sub-store ingested on
+    the mesh (signatures byte-equal to ``[store]``'s; hits equal), saved,
+    given graphs that are then removed, saved again and reopened on both
+    ranks (the first rank alone calls the writers, the directory holds
+    one generation, the reopened store's hits equal ``[store]``'s), and
+    ``register_corpus`` on a ``GedVerificationService`` over the mesh
+    (verdicts on the planted near-duplicates equal the sub-store's
+    hits); under ``--distributed-only`` the fused store and the
+    sub-store are first built, searched and saved here; a failed rank
     fails the script;
 18. a ``{"kernels": [...]}`` JSON line (launches of the all-fused
     ``"auto"`` run, the fused store's, the services', the mesh
-    ``"auto"`` run's, the ``ged-verify`` dry-run cell's and group (a)'s
-    ranks' in ``[distributed]``), the card's
+    ``"auto"`` run's, the ``ged-verify`` dry-run cell's and groups (a)'s
+    and (d)'s ranks' in ``[distributed]``), the card's
     name and power limit, and as the last line ``{"ok": true, "device":
     {...}}``.
 
@@ -256,6 +275,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1753,7 +1773,8 @@ def store_phase(smi):
     """The corpus layer on the card; returns (summary, the fused store's
     launches over its two search passes, the card's 2,000-graph sub-store:
     graphs, query ids and queries, its range and top-k hits, signatures
-    and wall seconds)."""
+    and wall seconds; the fused store's saved snapshot, a directory the
+    caller removes, with its query ids and hits at each tau)."""
     import torch
     from repro_torch import ged
     from repro_torch.kernels import ops as kops
@@ -1852,19 +1873,21 @@ def store_phase(smi):
     log(f"[store] verify_members on {n_checked} planted ids agrees with "
         f"the range hits at tau {tau:g}")
 
-    with tempfile.TemporaryDirectory() as d:
-        t0 = time.perf_counter()
-        store.save(d)
-        save_wall = time.perf_counter() - t0
-        warm = ged.GraphStore.open(d, device="cuda", **STORE_OPTS,
-                                   **variants["fused"])
-        ws = warm.stats
-        assert ws["filter_packed_rows"] == 0, ws["filter_packed_rows"]
-        assert ws["index_signatures_built"] == 0
-        for tau in STORE_TAUS:
-            expect_same_hits(f"[store] warm open at tau {tau}",
-                             warm.search_batch(queries, tau),
-                             hits["fused", tau])
+    # the snapshot outlives the phase: [distributed] (d) opens it on a mesh
+    d = tempfile.mkdtemp(prefix="repro_torch_store_")
+    t0 = time.perf_counter()
+    store.save(d)
+    save_wall = time.perf_counter() - t0
+    warm = ged.GraphStore.open(d, device="cuda", **STORE_OPTS,
+                               **variants["fused"])
+    ws = warm.stats
+    assert ws["filter_packed_rows"] == 0, ws["filter_packed_rows"]
+    assert ws["index_signatures_built"] == 0
+    for tau in STORE_TAUS:
+        expect_same_hits(f"[store] warm open at tau {tau}",
+                         warm.search_batch(queries, tau),
+                         hits["fused", tau])
+    del warm
     summ["persist"] = {"save_wall_s": save_wall,
                        "open_wall_s": ws["open_wall_s"],
                        "ingest_wall_s": store.stats["ingest_wall_s"]}
@@ -1902,7 +1925,9 @@ def store_phase(smi):
     sub_store = {"graphs": sub, "qids": sub_qids, "queries": sub_queries,
                  "ranged": answers["cuda"][0], "top": answers["cuda"][1],
                  "sigs": sub_sigs, "wall_s": answers["cuda"][2]}
-    return summ, launches, sub_store
+    big_store = {"snapshot": d, "qids": qids,
+                 "hits": {tau: hits["fused", tau] for tau in STORE_TAUS}}
+    return summ, launches, sub_store, big_store
 
 
 # -------------------------------------------------------------- serving
@@ -3642,7 +3667,11 @@ DISTRIBUTED_TIMEOUT = 420    # seconds for one group of rank processes
 DISTRIBUTED_GROUPS = {
     "a": (2, "gloo", (2, 1), ("data", "model"), True),
     "b": (1, "nccl", (1, 1, 1), ("pod", "data", "model"), False),
+    "d": (2, "gloo", (2, 1), ("data", "model"), False),
 }
+# group (d)'s input (the [store] snapshot, its queries, the sub-store),
+# written beside the rank records; group (b) reads its sub-store too
+STORE_INPUT = "store_input.pkl"
 
 
 def distributed_child(kind, rank, store, out):
@@ -3674,6 +3703,15 @@ def distributed_child(kind, rank, store, out):
         timeout=datetime.timedelta(seconds=DISTRIBUTED_TIMEOUT))
     try:
         mesh = make_test_mesh(shape, axes, device_type="cuda")
+        rec = {"rank": rank, "world": world, "backend": backend,
+               "shape": shape, "axes": axes, "device": str(
+                   torch.device("cuda", torch.cuda.current_device()))}
+        inp = Path(out).parent / STORE_INPUT
+        if kind == "d":
+            rec.update(store_rank(mesh, pickle.loads(inp.read_bytes())))
+            Path(out).write_bytes(pickle.dumps(rec))
+            dist.barrier()
+            return 0
         pairs, _ = aids_pairs(np.random.default_rng(SEED), PAIRS, 20, 30)
         big, _ = aids_pairs(np.random.default_rng(SEED + 5), BIG_PAIRS,
                             40, 60)
@@ -3703,9 +3741,6 @@ def distributed_child(kind, rank, store, out):
                 pairs + big, mix_vocab, "cuda", mesh=mesh, dispatch=fused)
             return comp, ver, tc, tv, stats
 
-        rec = {"rank": rank, "world": world, "backend": backend,
-               "shape": shape, "axes": axes, "device": str(
-                   torch.device("cuda", torch.cuda.current_device()))}
         paths = {"sharded": sharded, **({"auto": auto} if with_auto
                                         else {})}
         for fn in paths.values():           # warm-up: captures, first shapes
@@ -3721,11 +3756,194 @@ def distributed_child(kind, rank, store, out):
                           if k.startswith("executor_") or k in (
                               "dispatches", "host_solved")}}
         rec["launches"] = kops.launch_counts()
+        if kind == "b" and inp.exists():
+            rec["sub"] = sub_store_pass(mesh,
+                                        pickle.loads(inp.read_bytes()))[1]
         Path(out).write_bytes(pickle.dumps(rec))
         dist.barrier()
     finally:
         dist.destroy_process_group()
     return 0
+
+
+def fused_store_opts():
+    """``[store]``'s options with every kernel family fused."""
+    from repro_torch import ged
+    return dict(STORE_OPTS, use_kernel=True, dispatch=ged.KernelDispatch(
+        lsa_fused=True, bma_fused=True, merge_fused=True))
+
+
+def sub_store_pass(mesh, cfg):
+    """The 2,000-graph sub-store ingested on ``mesh``: (the store, its
+    ``range_search(tau=2)`` and ``top_k(4)`` hits, signatures, resident
+    rows, executor counters and seconds)."""
+    import torch
+    from repro_torch import ged
+    sub = cfg["graphs"]
+    queries = [sub[q] for q in cfg["sub_qids"]]
+    t0 = time.perf_counter()
+    st = ged.GraphStore(sub, mesh=mesh, **fused_store_opts())
+    torch.cuda.synchronize()
+    ingest = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hits = (st.search_batch(queries, STORE_TAUS[0]),
+            [st.top_k(q, 4) for q in queries])
+    torch.cuda.synchronize()
+    return st, {"hits": hits, "sigs": st._cindex.sigs,
+                "resident": resident_rows(st), "ingest_s": ingest,
+                "search_s": time.perf_counter() - t0,
+                "executor": dict(st.executor.stats)}
+
+
+def resident_rows(store):
+    """Per stage-0 bucket: (rows, resident rows of each local slice)."""
+    return [(len(b.ids), [sh[0].shape[0] for sh in b.shards])
+            for b in store._index.buckets]
+
+
+def store_rank(mesh, cfg):
+    """One rank of group (d): the ``[store]`` snapshot of 42,687 graphs
+    opened on ``mesh`` and searched at each tau (launch counts set to 0
+    just before the passes and read just after), then the sub-store
+    ingested on ``mesh``, saved, mutated (graphs added and removed),
+    saved again and reopened, with every call of the store's writers
+    counted and the directory listed after each write, and
+    ``register_corpus`` on a ``GedVerificationService`` over ``mesh``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import ged
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serving.ged_service import (GedRequest,
+                                                 GedVerificationService)
+    from repro_torch.store_io import graphstore_io
+    writes = dict.fromkeys(("save_store", "append_journal"), 0)
+
+    def counted(name, real):
+        def call(*args, **kwargs):
+            writes[name] += 1
+            return real(*args, **kwargs)
+        return call
+
+    for name in writes:
+        setattr(graphstore_io, name,
+                counted(name, getattr(graphstore_io, name)))
+    rec = {}
+    t0 = time.perf_counter()
+    big = ged.GraphStore.open(cfg["snapshot"], mesh=mesh,
+                              **fused_store_opts())
+    torch.cuda.synchronize()
+    rec["open_s"] = time.perf_counter() - t0
+    rec["resident"] = resident_rows(big)
+    queries = [big.graphs[q] for q in cfg["qids"]]
+    kops.reset_launch_counts()
+    for tau in STORE_TAUS:
+        before, ex = big.stats, dict(big.executor.stats)
+        t0 = time.perf_counter()
+        hits = big.search_batch(queries, tau)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        after, ex2 = big.stats, big.executor.stats
+        gathers = ex2["shard_gathers"] - ex["shard_gathers"]
+        rec["big", tau] = {
+            "hits": hits, "wall_s": wall,
+            "queries_per_s": len(queries) / wall,
+            **{k: after[k] - before[k] for k in STAGE_WALLS},
+            "shard_gathers": gathers,
+            "shard_gather_ms": 1e3 * (ex2["shard_gather_wall_s"]
+                                      - ex["shard_gather_wall_s"])
+            / max(gathers, 1),
+            "batch_gathers": ex2["gathers"] - ex["gathers"]}
+    rec["launches"] = kops.launch_counts()
+    del big
+
+    st, rec["sub"] = sub_store_pass(mesh, cfg)
+
+    def listing(d):
+        j = os.path.join(d, "journal")
+        return (sorted(os.listdir(d)),
+                sorted(os.listdir(j)) if os.path.isdir(j) else [])
+
+    d, steps = cfg["sub_dir"], {}
+    st.save(d)
+    steps["save"] = (listing(d), dict(writes))
+    dist.barrier()              # listed before the next write
+    ids = st.add(cfg["added"])
+    st.remove(ids)
+    steps["mutate"] = (listing(d), dict(writes))
+    dist.barrier()
+    st.save(d)
+    steps["save_again"] = (listing(d), dict(writes))
+    dist.barrier()
+    rec["sub_steps"] = steps
+    again = ged.GraphStore.open(d, mesh=mesh, **fused_store_opts())
+    queries = [cfg["graphs"][q] for q in cfg["sub_qids"]]
+    rec["sub_reopened"] = (again.search_batch(queries, STORE_TAUS[0]),
+                           [again.top_k(q, 4) for q in queries])
+    svc = GedVerificationService(mesh=mesh, use_kernel=True,
+                                 batch_size=STORE_OPTS["batch_size"])
+    svc.register_corpus(cfg["graphs"])
+    rec["service"] = svc.verify([
+        GedRequest(queries[qi], cfg["graphs"][p], tau=STORE_TAUS[0])
+        for qi, p in cfg["requests"]])
+    rec["service_in_store"] = svc.stats["store_candidates"]
+    return rec
+
+
+def distributed_store_input(big_store, sub_store, tmp):
+    """Group (d)'s input, written to ``tmp``: the ``[store]`` snapshot
+    and its query ids, the sub-store's graphs and query ids, where to
+    save it, graphs to add (perturbed queries whose labels the sub-store
+    already has, so its vocabulary stays) and the service's requests
+    (each query against its planted near-duplicates)."""
+    import pickle
+    from repro_torch.data.graphs import perturb
+    sub, sub_qids = sub_store["graphs"], sub_store["qids"]
+    vl = {int(v) for g in sub for v in g.vlabels}
+    el = {int(a) for g in sub for a in g.adj.reshape(-1)}
+    rng = np.random.default_rng(SEED + 11)
+    added = [g for g in (perturb(rng, sub[q], 1, n_vlabels=62, n_elabels=3)
+                         for q in sub_qids)
+             if {int(v) for v in g.vlabels} <= vl
+             and {int(a) for a in g.adj.reshape(-1)} <= el]
+    assert added, "no perturbed query keeps the sub-store's labels"
+    base = SUB_GRAPHS - SUB_QUERIES * SUB_PLANTED
+    requests = [(qi, base + qi * SUB_PLANTED + j)
+                for qi in range(len(sub_qids)) for j in range(SUB_PLANTED)]
+    (Path(tmp) / STORE_INPUT).write_bytes(pickle.dumps({
+        "snapshot": big_store["snapshot"], "qids": big_store["qids"],
+        "graphs": sub, "sub_qids": sub_qids, "added": added,
+        "sub_dir": str(Path(tmp) / "sub_saved"), "requests": requests}))
+
+
+def store_reference():
+    """What ``[store]`` hands group (d), made here when that phase did not
+    run (``--distributed-only``): the fused store of 42,687 graphs
+    ingested on the card, its ``search_batch`` hits at each tau and its
+    saved snapshot; the sub-store's hits and signatures on the card."""
+    import torch
+    from repro_torch import ged
+    graphs, qids, _ = store_corpus(
+        np.random.default_rng(SEED + 8), STORE_GRAPHS, 10, 40,
+        STORE_QUERIES, STORE_PLANTED)
+    store = ged.GraphStore(graphs, device="cuda", **fused_store_opts())
+    hits = {tau: store.search_batch([graphs[q] for q in qids], tau)
+            for tau in STORE_TAUS}
+    snapshot = tempfile.mkdtemp(prefix="repro_torch_store_")
+    store.save(snapshot)
+    del store
+    sub, sub_qids, _ = store_corpus(np.random.default_rng(SEED + 9),
+                                    SUB_GRAPHS, 8, 14, SUB_QUERIES,
+                                    SUB_PLANTED)
+    sub_queries = [sub[q] for q in sub_qids]
+    t0 = time.perf_counter()
+    st = ged.GraphStore(sub, device="cuda", **fused_store_opts())
+    ranged = st.search_batch(sub_queries, STORE_TAUS[0])
+    top = [st.top_k(q, 4) for q in sub_queries]
+    torch.cuda.synchronize()
+    sub_store = {"graphs": sub, "qids": sub_qids, "queries": sub_queries,
+                 "ranged": ranged, "top": top, "sigs": st._cindex.sigs,
+                 "wall_s": time.perf_counter() - t0}
+    return ({"snapshot": snapshot, "qids": qids, "hits": hits}, sub_store)
 
 
 def distributed_group(kind, world, tmp):
@@ -3768,25 +3986,41 @@ def distributed_group(kind, world, tmp):
 
 
 def distributed_phase(comp_t, ver_t, main_s, auto_comp, auto_ver, auto_s,
-                      smi, kinds="abc"):
-    """``GedEngine(mesh=)`` on ``torch.distributed`` meshes (see the module
-    docstring, phase 17): each group's ranks in child processes, outcomes
-    held to ``[main]``'s ``"torch"`` and ``[auto]``'s all-fused run.
+                      smi, kinds="abcd", big_store=None, sub_store=None):
+    """``GedEngine(mesh=)`` and ``GraphStore(mesh=)`` on
+    ``torch.distributed`` meshes (see the module docstring, phase 17):
+    each group's ranks in child processes, outcomes held to ``[main]``'s
+    ``"torch"`` and ``[auto]``'s all-fused run, hits to ``[store]``'s
+    (``big_store`` / ``sub_store``, as ``store_phase`` returns them;
+    group (d) needs both, group (b) runs the sub-store when it is given).
     ``kinds`` picks the groups.  Returns (summary, launches summed over
-    the ranks of group (a), or of the first group run)."""
+    the ranks of groups (a) and (d), or of the first group run)."""
     import torch
     t_phase = time.perf_counter()
     groups = {k: v[0] for k, v in DISTRIBUTED_GROUPS.items() if k in kinds}
     cards = torch.cuda.device_count()
     if cards > 1 and "c" in kinds:
         groups["c"] = cards
-    launches = None
+    per_group = {}
     summ = {"one_device_s": {"torch_compute_verify": main_s,
                              "auto_all_fused_compute_verify": auto_s}}
     with tempfile.TemporaryDirectory() as tmp:
+        if "d" in groups:
+            distributed_store_input(big_store, sub_store, tmp)
         for kind, world in groups.items():
             t0 = time.perf_counter()
             recs = distributed_group(kind, world, tmp)
+            if kind == "d":
+                summ[kind] = store_group_rows(recs, big_store, sub_store)
+                summ[kind]["wall_s"] = time.perf_counter() - t0
+                log("[distributed] (d) " + json.dumps(summ[kind]) +
+                    "; every rank's hits equal [store]'s fused hits on the "
+                    "snapshot and on the sub-store, each rank holds half of "
+                    "each stage-0 bucket, the first rank alone wrote "
+                    f"({smi})")
+                per_group[kind] = {k: sum(r["launches"][k] for r in recs)
+                                   for k in KERNELS}
+                continue
             rows = []
             for rec in recs:
                 row = {"rank": rec["rank"], "device": rec["device"]}
@@ -3826,6 +4060,20 @@ def distributed_phase(comp_t, ver_t, main_s, auto_comp, auto_ver, auto_s,
                     assert not missing, (f"[distributed] ({kind}) rank "
                                          f"{rec['rank']} never launched "
                                          f"{missing}")
+                if "sub" in rec:        # (b): the sub-store, fast path
+                    sub = rec["sub"]
+                    tag = f"[distributed] ({kind}) sub-store"
+                    expect_same_hits(tag + " range", sub["hits"][0],
+                                     sub_store["ranged"])
+                    expect_same_hits(tag + " top-k", sub["hits"][1],
+                                     sub_store["top"])
+                    ex = sub["executor"]
+                    assert ex["single_device_fastpath"] > 0, ex
+                    assert "shard_gathers" not in ex, ex
+                    row["sub_store"] = {
+                        "ingest_s": sub["ingest_s"],
+                        "search_s": sub["search_s"],
+                        "fastpath_dispatches": ex["single_device_fastpath"]}
                 row["launches"] = rec["launches"]
                 rows.append(row)
             summ[kind] = {"ranks": world, "backend": recs[0]["backend"],
@@ -3835,18 +4083,82 @@ def distributed_phase(comp_t, ver_t, main_s, auto_comp, auto_ver, auto_s,
             log(f"[distributed] ({kind}) " + json.dumps(summ[kind])
                 + "; every rank's outcomes equal [main]'s \"torch\""
                 + (" and [auto]'s all-fused run" if "auto" in recs[0]
+                   else "")
+                + (" and [store]'s sub-store hits" if "sub" in recs[0]
                    else "") + f" ({smi})")
-            if launches is None:
-                launches = {k: sum(r["launches"][k] for r in recs)
-                            for k in KERNELS}
+            per_group[kind] = {k: sum(r["launches"][k] for r in recs)
+                               for k in KERNELS}
+    picked = [k for k in ("a", "d") if k in per_group] or list(per_group)[:1]
+    launches = {k: sum(per_group[g][k] for g in picked) for k in KERNELS}
     if cards == 1 and "c" in kinds:
         summ["c"] = "not run: one card"
         log("[distributed] (c) one NCCL rank per card: not run, one card")
     summ["phase_s"] = time.perf_counter() - t_phase
     log("[distributed] summary: " + json.dumps(
-        {"one_device_s": summ["one_device_s"], "phase_s": summ["phase_s"]})
+        {"one_device_s": summ["one_device_s"], "phase_s": summ["phase_s"],
+         **{f"{k}_wall_s": summ[k]["wall_s"] for k in groups}})
         + f" ({smi})")
     return summ, launches
+
+
+def store_group_rows(recs, big_store, sub_store):
+    """Group (d)'s records held to ``[store]``'s hits and to the write
+    contract; its summary (per rank: open seconds, queries/s, stage walls
+    and the shard gathers' ms at each tau, resident rows, launches, the
+    sub-store's seconds)."""
+    rows = []
+    for rec in recs:
+        r = rec["rank"]
+        tag = f"[distributed] (d) rank {r}"
+        for tau in STORE_TAUS:
+            expect_same_hits(f"{tag} snapshot at tau {tau}",
+                             rec["big", tau]["hits"],
+                             big_store["hits"][tau])
+        for rows_, slices in rec["resident"] + rec["sub"]["resident"]:
+            assert slices == [-(-rows_ // 2)], (tag, rows_, slices)
+        missing = [k for k, v in rec["launches"].items() if v <= 0]
+        assert not missing, f"{tag} never launched {missing}"
+        sub = rec["sub"]
+        assert sub["sigs"].dtype == sub_store["sigs"].dtype
+        assert sub["sigs"].tobytes() == sub_store["sigs"].tobytes(), tag
+        for key, (ranged, top) in (("live", sub["hits"]),
+                                   ("reopened", rec["sub_reopened"])):
+            expect_same_hits(f"{tag} sub-store {key} range", ranged,
+                             sub_store["ranged"])
+            expect_same_hits(f"{tag} sub-store {key} top-k", top,
+                             sub_store["top"])
+        steps = rec["sub_steps"]
+        assert steps["save"][0] == (["graphstore.json", "seg-00000000"],
+                                    []), steps
+        assert steps["mutate"][0] == (
+            ["graphstore.json", "journal", "seg-00000000"],
+            ["j-00000001.json", "j-00000001.seg", "j-00000002.json"]), steps
+        assert steps["save_again"][0] == (
+            ["graphstore.json", "journal", "seg-00000001"], []), steps
+        calls = [steps[k][1] for k in ("save", "mutate", "save_again")]
+        want = [{"save_store": 1, "append_journal": 0},
+                {"save_store": 1, "append_journal": 2},
+                {"save_store": 2, "append_journal": 2}]
+        assert calls == (want if r == 0 else [dict.fromkeys(c, 0)
+                                              for c in want]), (tag, calls)
+        found = [{h.graph_id for h in hs} for hs in sub_store["ranged"]]
+        base = SUB_GRAPHS - SUB_QUERIES * SUB_PLANTED
+        for i, o in enumerate(rec["service"]):
+            qi, p = divmod(i, SUB_PLANTED)
+            assert o.certified and o.similar == (
+                base + qi * SUB_PLANTED + p in found[qi]), (tag, i, o)
+        assert 0 < rec["service_in_store"] <= len(rec["service"]), tag
+        rows.append({
+            "rank": r, "device": rec["device"], "open_s": rec["open_s"],
+            **{f"tau{tau:g}": {k: v for k, v in rec["big", tau].items()
+                               if k != "hits"} for tau in STORE_TAUS},
+            "resident_rows": [s[0] for _, s in rec["resident"]],
+            "bucket_rows": [n for n, _ in rec["resident"]],
+            "launches": rec["launches"],
+            "sub_store": {k: sub[k] for k in ("ingest_s", "search_s")}})
+    return {"ranks": len(recs), "backend": recs[0]["backend"],
+            "mesh": [list(recs[0]["shape"]), list(recs[0]["axes"])],
+            "per_rank": rows}
 
 
 # ----------------------------------------------------------------- main
@@ -3924,9 +4236,16 @@ def main(argv) -> int:
         auto_c, auto_v, _, tac, tav, _ = auto_run(mix, label_vocab(mix),
                                                   "cuda", dispatch=fused)
         groups = argv[argv.index("--distributed-only") + 1:]
-        distributed_phase(comp_t, ver_t, [tc, tv], auto_c, auto_v,
-                          [tac, tav], smi, kinds=groups[0] if groups
-                          else "abc")
+        kinds = groups[0] if groups else "abcd"
+        big_store, sub_store = (store_reference() if "d" in kinds
+                                else (None, None))
+        try:
+            distributed_phase(comp_t, ver_t, [tc, tv], auto_c, auto_v,
+                              [tac, tav], smi, kinds=kinds,
+                              big_store=big_store, sub_store=sub_store)
+        finally:
+            if big_store is not None:
+                shutil.rmtree(big_store["snapshot"], ignore_errors=True)
         log(f"[device] {smi}")
         log(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -4063,7 +4382,7 @@ def main(argv) -> int:
             auto_summ["compute_s_median_min_max"][0], tune_dir, smi)
 
     # ---- the corpus layer: GraphStore at the AIDS database's size -------
-    store_summ, store_launches, sub_store = store_phase(smi)
+    store_summ, store_launches, sub_store, big_store = store_phase(smi)
 
     # ---- the GED services and their launcher ---------------------------
     serving_summ, serving_launches = serving_phase(pairs, ver_c, sub_store,
@@ -4083,11 +4402,15 @@ def main(argv) -> int:
     # ---- the launch layer: placement on the card and the dry run -------
     dry_summ, dry_launches = dryrun_phase(smi, dry_children, dry_dir)
 
-    # ---- GedEngine on torch.distributed meshes, one process a rank -----
-    dist_summ, dist_launches = distributed_phase(
-        comp_t, ver_t, [statistics.median(times["torch"][0]),
-                        statistics.median(times["torch"][1])],
-        auto_comp, auto_ver, auto_summ["all_fused_s"], smi)
+    # ---- GedEngine and GraphStore on torch.distributed meshes ----------
+    try:
+        dist_summ, dist_launches = distributed_phase(
+            comp_t, ver_t, [statistics.median(times["torch"][0]),
+                            statistics.median(times["torch"][1])],
+            auto_comp, auto_ver, auto_summ["all_fused_s"], smi,
+            big_store=big_store, sub_store=sub_store)
+    finally:
+        shutil.rmtree(big_store["snapshot"], ignore_errors=True)
 
     phase_launches = {"auto": launches, "store": store_launches,
                       "serving": serving_launches,

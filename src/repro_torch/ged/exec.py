@@ -227,6 +227,25 @@ class Executor:
         rank.  One process is its own group: it calls ``fn``."""
         return fn()
 
+    def local_rows(self, n: int) -> Tuple[int, int]:
+        """The rows ``lo:hi`` of an ``n``-row array, padded to a multiple
+        of :attr:`batch_multiple`, that this process holds, in one
+        contiguous slice a device of :attr:`devices`.  One process holds
+        them all; a rank of a ``torch.distributed`` mesh its shard's.
+
+        >>> Executor(device="cpu").local_rows(5)
+        (0, 5)
+        """
+        m = self.batch_multiple
+        return 0, -(-int(n) // m) * m
+
+    def gather_shards(self, fn) -> list:
+        """``fn()``, this process's part of a host result, gathered from
+        every shard of the group in shard order (replicas give the first
+        copy); an error of ``fn`` on any rank raises on every rank.  One
+        process is its own group: ``[fn()]``, no collective."""
+        return [fn()]
+
     def pack(self, pairs, slots: int, vocab: Optional[Vocab]):
         """Pack ``pairs`` with this executor's batch-shape policy; returns
         ``(tensors, real_count)``."""
@@ -385,7 +404,10 @@ class RankGroup:
     status and a few flags).  Making the group is a collective over the
     default group, so every rank builds its executor at the same point;
     the group is made once per set of ranks and default group.
-    ``stats`` (the executor's) counts ``gathers`` and ``gather_wall_s``.
+    ``stats`` (the executor's) counts the batch gathers (``gathers``,
+    ``gather_wall_s``) and the gathers of other host results, such as
+    the corpus layer's stage-0 bounds and signatures (``shard_gathers``,
+    ``shard_gather_wall_s``).
     """
 
     def __init__(self, shard: RankShard, stats: Dict[str, float]):
@@ -401,23 +423,26 @@ class RankGroup:
         self.ranks = ranks
         self.me = ranks.index(dist.get_rank())
         self.stats = stats
-        stats.update(gathers=0, gather_wall_s=0.0)
+        stats.update(gathers=0, gather_wall_s=0.0, shard_gathers=0,
+                     shard_gather_wall_s=0.0)
 
-    def gather(self, rows: Optional[Dict[str, np.ndarray]],
-               failure: Optional[BaseException], flags: Dict[str, float]
-               ) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
-        """Exchange this rank's shard rows (or its failure) and flags.
-        Returns every shard's rows in batch order and each flag's largest
-        value over the ranks; if any rank failed, raises the first failed
-        rank's error, the same type and message, on every rank."""
+    def _exchange(self, part, failure: Optional[BaseException],
+                  flags: Dict[str, float], counter: str
+                  ) -> Tuple[list, Dict[str, float]]:
+        """All-gather this rank's ``part`` (or its failure) and flags.
+        Returns every shard's part in shard order (the first copy of a
+        replicated shard) and each flag's largest value over the ranks;
+        if any rank failed, raises the first failed rank's error, the
+        same type and message, on every rank.  Counts ``counter`` and its
+        wall in ``stats``."""
         import torch.distributed as dist
         sent = None if failure is None else _portable(failure)
         got: List[Optional[tuple]] = [None] * len(self.ranks)
         t0 = time.perf_counter()
-        dist.all_gather_object(got, (self.shard.index, rows, sent,
+        dist.all_gather_object(got, (self.shard.index, part, sent,
                                      dict(flags)), group=self.group)
-        self.stats["gathers"] += 1
-        self.stats["gather_wall_s"] += time.perf_counter() - t0
+        self.stats[counter + "s"] += 1
+        self.stats[counter + "_wall_s"] += time.perf_counter() - t0
         for r, (_, _, err, _) in enumerate(got):
             if err is None:
                 continue
@@ -427,15 +452,35 @@ class RankGroup:
                 raise sent from failure
             err.add_note(f"raised on rank {self.ranks[r]} of the mesh")
             raise err from failure
-        first: Dict[int, Dict[str, np.ndarray]] = {}
+        first: Dict[int, object] = {}
         merged: Dict[str, float] = {}
-        for index, part, _, fl in got:
-            first.setdefault(index, part)
+        for index, got_part, _, fl in got:
+            first.setdefault(index, got_part)
             for k, v in fl.items():
                 merged[k] = max(merged.get(k, v), v)
-        parts = [first[i] for i in range(self.shard.count)]
+        return [first[i] for i in range(self.shard.count)], merged
+
+    def gather(self, rows: Optional[Dict[str, np.ndarray]],
+               failure: Optional[BaseException], flags: Dict[str, float]
+               ) -> Tuple[Dict[str, np.ndarray], Dict[str, float]]:
+        """Exchange this rank's shard rows (or its failure) and flags
+        (:meth:`_exchange`, counted as ``gathers``).  Returns every
+        shard's rows in batch order and each flag's largest value over
+        the ranks."""
+        parts, merged = self._exchange(rows, failure, flags, "gather")
         return ({k: np.concatenate([p[k] for p in parts]) for k in parts[0]},
                 merged)
+
+    def gather_shards(self, fn) -> list:
+        """``fn()`` on every rank, gathered in shard order
+        (:meth:`_exchange`, counted as ``shard_gathers``); ``fn``'s error
+        on any rank raises on every rank."""
+        part, failure = None, None
+        try:
+            part = fn()
+        except Exception as exc:
+            failure = exc
+        return self._exchange(part, failure, {}, "shard_gather")[0]
 
     def any(self, flags: Sequence[bool]) -> Tuple[bool, ...]:
         """Each flag OR-ed over the ranks (one small all-reduce)."""
@@ -556,8 +601,14 @@ class ShardedExecutor(Executor):
     other axes compute the same rows.  Backends make every decision that
     reads a clock or ``ready()`` through :meth:`agree`, and host solves
     through :meth:`from_root`, so each rank returns the same outcomes.  A
-    mesh whose pairs axes have size 1 takes the fast path and makes no
-    collective; its ranks then decide alone, as one process each.
+    mesh whose pairs axes have size 1 takes the fast path and gathers
+    nothing; when it has several ranks (replicas) they still agree and
+    take the first rank's host solves and writes, and one rank alone
+    makes no collective.  Callers other than the dispatch split their
+    own arrays the same way: :meth:`local_rows` names the rows a rank
+    holds, :meth:`gather_shards` hands every rank each shard's part
+    (the corpus layer's stage-0 features and signatures,
+    :mod:`repro_torch.ged.filters`, :func:`batch_signatures`).
 
     >>> ex = ShardedExecutor(["cpu"] * 4)
     >>> ex.batch_multiple, ex.stats["single_device_fastpath"]
@@ -589,7 +640,7 @@ class ShardedExecutor(Executor):
         self.mesh = mesh
         super().__init__(self._devices[0])
         self.stats["single_device_fastpath"] = 0
-        if self._shard is not None and self._shard.count > 1:
+        if self._shard is not None and len(self._shard.ranks) > 1:
             self._ranks = RankGroup(self._shard, self.stats)
 
     @property
@@ -613,9 +664,25 @@ class ShardedExecutor(Executor):
     def from_root(self, fn):
         return fn() if self._ranks is None else self._ranks.from_root(fn)
 
+    @property
+    def _split(self) -> bool:
+        """Is each batch split over the ranks of a process group?"""
+        return self._ranks is not None and self._shard.count > 1
+
+    def local_rows(self, n: int) -> Tuple[int, int]:
+        if not self._split:
+            return super().local_rows(n)
+        size = -(-int(n) // self._shard.count)
+        return self._shard.index * size, (self._shard.index + 1) * size
+
+    def gather_shards(self, fn) -> list:
+        if not self._split:
+            return super().gather_shards(fn)
+        return self._ranks.gather_shards(fn)
+
     def _robust_dispatch(self, packed, taus, cfg, verification, ctx,
                          rung) -> PendingBatch:
-        if self._ranks is None:
+        if not self._split:
             return super()._robust_dispatch(packed, taus, cfg, verification,
                                             ctx, rung)
         # a rank whose dispatch failed still joins the batch's gather,
@@ -628,7 +695,7 @@ class ShardedExecutor(Executor):
         return GatheredBatch(self._ranks, local)
 
     def _dispatch(self, packed, taus, cfg, verification):
-        if len(self._devices) == 1 and self._ranks is None:
+        if len(self._devices) == 1 and not self._split:
             # one shard: nothing to split
             self.stats["single_device_fastpath"] += 1
             return super()._dispatch(packed, taus, cfg, verification)
@@ -640,7 +707,7 @@ class ShardedExecutor(Executor):
                 f"{shards} (GedEngine does this automatically)")
         size = packed.batch // shards
         taus = np.asarray(taus, dtype=np.float32)
-        if self._ranks is not None:
+        if self._split:
             # this rank's rows only; GatheredBatch.result gathers the rest
             lo = self._shard.index * size
             return super()._dispatch(_rows(packed, lo, lo + size),
@@ -919,9 +986,12 @@ def batch_signatures(graphs: Sequence[Graph],
     rows, and hashed with batched torch ops (``scatter_add_`` bins the
     histograms).  On a :class:`ShardedExecutor` each chunk is padded to
     the shard multiple and split into one contiguous shard per mesh
-    device, as the reference splits it over its mesh.  Returns
-    ``(len(graphs), spec.dims)`` int32 on the host, row order = input
-    order, bit-identical to the host path and to the reference's
+    device, as the reference splits it over its mesh; on a
+    ``torch.distributed`` mesh each rank packs and hashes only its own
+    shard (:meth:`Executor.local_rows`) and one gather
+    (:meth:`Executor.gather_shards`) hands every rank all of them.
+    Returns ``(len(graphs), spec.dims)`` int32 on the host, row order =
+    input order, bit-identical to the host path and to the reference's
     ``batch_signatures``:
 
     >>> from repro_torch.ged.plan import as_graph
@@ -934,31 +1004,40 @@ def batch_signatures(graphs: Sequence[Graph],
     sigs = np.zeros((len(graphs), spec.dims), dtype=np.int32)
     if not len(graphs):
         return sigs
-    devices = (executor or Executor()).devices
-    mult = len(devices)
+    executor = executor or Executor()
+    devices = executor.devices
     by_slots: Dict[int, list] = {}
     for i, g in enumerate(graphs):
         by_slots.setdefault(slot_bucket(g.n), []).append(i)
-    for slots in sorted(by_slots):
-        idxs = by_slots[slots]
-        for lo in range(0, len(idxs), chunk):
-            part = idxs[lo:lo + chunk]
-            batch = -(-len(part) // mult) * mult
-            vlab = np.zeros((batch, slots), dtype=np.int64)
-            mask = np.zeros((batch, slots), dtype=np.int64)
-            adj = np.zeros((batch, slots, slots), dtype=np.int64)
-            for r, gi in enumerate(part):
+    chunks = [(slots, by_slots[slots][lo:lo + chunk])
+              for slots in sorted(by_slots)
+              for lo in range(0, len(by_slots[slots]), chunk)]
+
+    def local() -> List[np.ndarray]:
+        outs = []
+        for slots, part in chunks:
+            lo, hi = executor.local_rows(len(part))
+            vlab = np.zeros((hi - lo, slots), dtype=np.int64)
+            mask = np.zeros((hi - lo, slots), dtype=np.int64)
+            adj = np.zeros((hi - lo, slots, slots), dtype=np.int64)
+            for r, gi in enumerate(part[lo:hi]):
                 g = graphs[gi]
                 vlab[r, :g.n] = g.vlabels
                 mask[r, :g.n] = 1
                 adj[r, :g.n, :g.n] = g.adj
-            size = batch // mult
+            size = (hi - lo) // len(devices)
             # every shard is started before any is read back
-            outs = [_signatures(*(torch.from_numpy(a[s * size:(s + 1) * size])
-                                  .to(d) for a in (vlab, mask, adj)), spec)
-                    for s, d in enumerate(devices)]
-            out = np.concatenate([o.cpu().numpy() for o in outs])
-            sigs[np.asarray(part, dtype=np.int64)] = out[:len(part)]
+            outs.append([_signatures(*(
+                torch.from_numpy(a[s * size:(s + 1) * size]).to(d)
+                for a in (vlab, mask, adj)), spec)
+                for s, d in enumerate(devices)])
+        return [np.concatenate([o.cpu().numpy() for o in row]
+                               ).astype(np.int32) for row in outs]
+
+    parts = executor.gather_shards(local)
+    for c, (_, part) in enumerate(chunks):
+        out = np.concatenate([p[c] for p in parts])
+        sigs[np.asarray(part, dtype=np.int64)] = out[:len(part)]
     return sigs
 
 

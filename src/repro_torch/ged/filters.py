@@ -10,12 +10,19 @@ bucket's arrays on every scan.  The counterpart of
 ``repro/ged/filters.py``.
 
 On a :class:`~repro_torch.ged.exec.ShardedExecutor` each bucket's rows
-are split into one contiguous slice per mesh device, each resident on its
-device and padded to one length (the resident rows are a multiple of the
-shard count; the host arrays stay unpadded); a scan copies the query's
-row to every device and gathers the bounds in row order, so
+are split into one contiguous slice per pair shard of the mesh, each
+resident on its device and padded to one length (the resident rows are a
+multiple of the shard count; the host arrays stay whole and unpadded,
+since persistence and ``packed_rows`` read them); a scan copies the
+query's row to every device and gathers the bounds in row order, so
 ``GraphStore(mesh=...)`` splits the stage-0 scan as it splits
-verification batches.
+verification batches, as the reference ``shard_map``s its scan.  On a
+``torch.distributed`` mesh a rank holds only its own shard's slice
+(:meth:`~repro_torch.ged.exec.Executor.local_rows`) on its card, scores
+it, and one gather a scan
+(:meth:`~repro_torch.ged.exec.Executor.gather_shards`) hands every rank
+all the bounds; every rank enters it, also one whose slice holds none
+of the requested rows.
 """
 
 from __future__ import annotations
@@ -38,13 +45,15 @@ from repro_torch.ged.plan import Vocab, slot_bucket
 @dataclasses.dataclass
 class FeatureBucket:
     """One slot bucket of the corpus: ids, host feature arrays (possibly
-    mmap-backed after a warm open) and their copies on the devices, one
-    contiguous row slice per shard, each padded to the same length."""
+    mmap-backed after a warm open) and the rows this process holds on its
+    devices, one contiguous slice a device, each padded to the length
+    every shard of the mesh has."""
 
     slots: int
     ids: List[int]                      # corpus positions, ingest order
     features: CorpusFeatures
-    shards: List[Tuple[torch.Tensor, ...]]  # per mesh device, in order
+    shards: List[Tuple[torch.Tensor, ...]]  # per local device, in order
+    first: int = 0                      # mesh shard of shards[0]
 
     @property
     def resident(self) -> Tuple[torch.Tensor, ...]:
@@ -96,18 +105,20 @@ class FilterIndex:
 
     def _bucket(self, slots: int, bids: List[int],
                 feats: CorpusFeatures) -> FeatureBucket:
-        """Put one contiguous slice of the bucket's rows on each of the
-        executor's devices, every slice padded to one length (the filler
-        repeats the last row; nothing on one device)."""
+        """Put this process's rows of the bucket on the executor's
+        devices, one contiguous slice each, every slice of the mesh
+        padded to one length (the filler repeats the last row; nothing
+        on one device)."""
         devices = self.executor.devices
-        size = -(-feats.batch // len(devices))
-        take = np.minimum(np.arange(size * len(devices)),
-                          max(feats.batch - 1, 0))
+        lo, hi = self.executor.local_rows(feats.batch)
+        size = (hi - lo) // len(devices)
+        take = np.minimum(np.arange(lo, hi), max(feats.batch - 1, 0))
         shards = [tuple(torch.from_numpy(np.asarray(
                       a[take[i * size:(i + 1) * size]], dtype=np.float32))
                         .to(d) for a in feats.arrays())
                   for i, d in enumerate(devices)]
-        return FeatureBucket(slots, bids, feats, shards)
+        return FeatureBucket(slots, bids, feats, shards,
+                             lo // size if size else 0)
 
     def _reindex(self) -> None:
         # id order the scan output follows (bucket construction order)
@@ -157,12 +168,14 @@ class FilterIndex:
         query's slot bucket.
         """
         self.stats["scans"] += 1
-        parts = []
-        for b in self.buckets:
-            parts.append(self._scan_shards(
-                query, b.shards, b.slots)[:len(b.ids)])
+        parts = self.executor.gather_shards(lambda: [
+            self._scan_shards(query, b.shards, b.slots)
+            for b in self.buckets])
+        out = []
+        for bi, b in enumerate(self.buckets):
+            out.append(np.concatenate([p[bi] for p in parts])[:len(b.ids)])
             self.stats["scanned"] += len(b.ids)
-        return np.concatenate(parts) if parts \
+        return np.concatenate(out) if out \
             else np.zeros(0, dtype=np.float32)
 
     def scan_by_id(self, query: Graph) -> Dict[int, float]:
@@ -186,25 +199,42 @@ class FilterIndex:
         by_bucket: Dict[int, List[int]] = {}
         for gid in ids:
             by_bucket.setdefault(self._where[gid][0], []).append(gid)
-        for bi in sorted(by_bucket):
-            b = self.buckets[bi]
-            gids = by_bucket[bi]
+        buckets = sorted(by_bucket)
+        # per bucket, the requested positions in mesh shard order, and the
+        # (slice of this process, row in it) of the ones it holds
+        order: List[List[int]] = []
+        picks: List[List[Tuple[int, int]]] = []
+        for bi in buckets:
+            b, gids = self.buckets[bi], by_bucket[bi]
             size = b.shards[0][0].shape[0]
-            # (shard, row within it) of each requested id
-            where = [divmod(self._where[g][1], size) for g in gids]
-            picked, order = [], []
-            for si, shard in enumerate(b.shards):
-                mine = [k for k, (s, _) in enumerate(where) if s == si]
-                if not mine:
-                    continue
-                rows = torch.as_tensor([where[k][1] for k in mine],
-                                       dtype=torch.int64,
-                                       device=shard[0].device)
-                picked.append(tuple(a.index_select(0, rows) for a in shard))
-                order.extend(mine)
+            ranked = sorted(enumerate(divmod(self._where[g][1], size)
+                                      for g in gids),
+                            key=lambda kw: kw[1][0])
+            order.append([k for k, _ in ranked])
+            picks.append([(s - b.first, r) for _, (s, r) in ranked
+                          if 0 <= s - b.first < len(b.shards)])
+
+        def local() -> List[np.ndarray]:
+            vals = []
+            for bi, mine in zip(buckets, picks):
+                b = self.buckets[bi]
+                picked = []
+                for si, shard in enumerate(b.shards):
+                    rows = [r for s, r in mine if s == si]
+                    if rows:
+                        at = torch.as_tensor(rows, dtype=torch.int64,
+                                             device=shard[0].device)
+                        picked.append(tuple(a.index_select(0, at)
+                                            for a in shard))
+                vals.append(self._scan_shards(query, picked, b.slots))
+            return vals
+
+        parts = self.executor.gather_shards(local)
+        for n, bi in enumerate(buckets):
+            gids = by_bucket[bi]
             vals = np.empty(len(gids), dtype=np.float32)
-            vals[np.asarray(order, dtype=np.int64)] = self._scan_shards(
-                query, picked, b.slots)
+            vals[np.asarray(order[n], dtype=np.int64)] = np.concatenate(
+                [p[n] for p in parts])
             self.stats["scanned"] += len(gids)
             out.update(zip(gids, vals.tolist()))
         return out
@@ -215,8 +245,10 @@ class FilterIndex:
                      shards: Sequence[Tuple[torch.Tensor, ...]],
                      slots: int) -> np.ndarray:
         """Score ``query`` against each shard's tensors on its own device;
-        host f32 in shard order.  Every shard is started before any is
-        read back."""
+        host f32 in shard order (empty without a shard).  Every shard is
+        started before any is read back."""
+        if not shards:
+            return np.zeros(0, dtype=np.float32)
         cvh = shards[0][0]
         width = max(slots, slot_bucket(query.n))
         shape = (slots, sum(s[0].shape[0] for s in shards), width,

@@ -43,6 +43,21 @@ re-hashes nothing.  :meth:`add` / :meth:`remove` journal mutations,
 folded by :meth:`compact`.  The store runs on the card unless given
 ``device="cpu"`` (or a CPU ``mesh``); ``mesh=`` splits the stage-0
 features, the signature build, stage 1 and stage 2 over several devices.
+
+``mesh`` may be a ``torch.distributed`` ``DeviceMesh`` (from
+:mod:`repro_torch.launch.mesh`, one process per card), used SPMD as
+:class:`~repro_torch.ged.GedEngine` uses one: every rank builds the store
+at the same point and calls the same methods with the same arguments in
+the same order, and every ``store_dir`` it is given must be readable by
+every rank.  Each rank holds only its shard's slice of the stage-0
+features on its card and hashes only its shard of the signatures; the
+bounds, signatures and engine rows are gathered, so every rank returns
+the same hits.  The first rank alone writes snapshots and journal
+entries (:meth:`~repro_torch.ged.exec.Executor.from_root`), the others
+wait for it, and a write error raises on every rank; :meth:`open` reads
+on every rank and takes its fallbacks on every rank or on none.  The
+WL dedup checks are host work that each rank repeats.  A shared
+result-cache tier is refused on such a mesh (``GedEngine``).
 """
 
 from __future__ import annotations
@@ -68,7 +83,6 @@ from repro_torch.ged.plan import (Plan, Vocab, as_graph, graphs_vocab,
                                   merge_vocab)
 from repro_torch.ged.results import (STAGE_BOUND, STAGE_FILTER, STAGE_INDEX,
                                      STAGE_VERIFY, GedOutcome, SearchHit)
-from repro_torch.parallel.sharding import is_distributed_mesh
 
 _INF = float("inf")
 _ZERO16 = b"\x00" * 16
@@ -86,13 +100,14 @@ class GraphStore:
         default a fresh ``GedEngine("auto", device=device, mesh=mesh)``
         (certified answers).  ``device`` (default: the card) also places
         the stage-0 features, the signature build and the stage-1 pass;
-        ``mesh`` (a flat device sequence or a named ``DeviceMesh``, see
-        :class:`~repro_torch.ged.exec.ShardedExecutor`) splits all of them
-        over its pair shards.  Pass an existing ``engine=`` to share its
-        executor and result cache — exclusive with ``backend``, ``mesh``
-        and engine keyword options (and with ``device`` when the engine
-        has its own executor), which would otherwise be silently
-        ignored.
+        ``mesh`` (a flat device sequence, a named ``DeviceMesh`` or a
+        ``torch.distributed`` one, see
+        :class:`~repro_torch.ged.exec.ShardedExecutor` and the module
+        docstring) splits all of them over its pair shards.  Pass an
+        existing ``engine=`` to share its executor and result cache —
+        exclusive with ``backend``, ``mesh`` and engine keyword options
+        (and with ``device`` when the engine has its own executor),
+        which would otherwise be silently ignored.
     digest : ``"wl"`` (default) additionally dedups *isomorphic* corpus
         entries: WL-digest collisions are candidate groups, and every
         candidate merge is confirmed by a certified zero-distance check
@@ -159,6 +174,7 @@ class GraphStore:
         self.compact_every = 64
         self._dedup_checks = 0
         self._init_engine(backend, device, mesh, engine, engine_options)
+        self._init_filter_cfg()
         self._init_counts()
         t0 = time.perf_counter()
         self._ingest(range(len(self.graphs)), vocab)
@@ -185,11 +201,6 @@ class GraphStore:
                      engine_options: Dict) -> None:
         executor = getattr(getattr(engine, "_backend", None), "executor",
                            None)
-        if is_distributed_mesh(mesh) or is_distributed_mesh(
-                getattr(executor, "mesh", None)):
-            raise TypeError(
-                "a GraphStore over a torch.distributed mesh is not ported "
-                "yet; give it a flat device list or a DeviceMesh")
         placed = device is not None and executor is not None
         if engine is not None and (backend != "auto" or placed
                                    or mesh is not None or engine_options):
@@ -211,15 +222,20 @@ class GraphStore:
             executor = getattr(engine._backend, "executor", None)
         self.engine = engine
         # the host-solver backend has no executor: the store's own one
-        # places the stage-0 features, the signatures and stage 1
+        # places the stage-0 features, the signatures and stage 1 (on a
+        # torch.distributed mesh making it is a collective, at the same
+        # point on every rank)
         if executor is None:
             executor = (ShardedExecutor(mesh, device=device)
                         if mesh is not None else Executor(device))
         self.executor = executor
+
+    def _init_filter_cfg(self) -> None:
+        """The stage-1 engine budget (``None`` when stage 1 is off)."""
         self._filter_cfg = None
         if self.filter_iters:
             self._filter_cfg = dataclasses.replace(
-                engine.config, pool=int(self.filter_pool), expand=2,
+                self.engine.config, pool=int(self.filter_pool), expand=2,
                 max_iters=int(self.filter_iters))
 
     def _init_counts(self) -> None:
@@ -351,7 +367,8 @@ class GraphStore:
         """
         from repro_torch.store_io import graphstore_io
         store_dir = str(store_dir)
-        graphstore_io.save_store(self, store_dir)
+        self.executor.from_root(
+            lambda: graphstore_io.save_store(self, store_dir))
         self._store_dir = store_dir
         self._journal_base = self._journal_seq
         return store_dir
@@ -363,7 +380,8 @@ class GraphStore:
             raise RuntimeError(
                 "store is not attached to a directory; call save() first")
         from repro_torch.store_io import graphstore_io
-        graphstore_io.save_store(self, self._store_dir)
+        self.executor.from_root(
+            lambda: graphstore_io.save_store(self, self._store_dir))
         self._journal_base = self._journal_seq
         self._counts["compactions"] += 1
 
@@ -400,16 +418,25 @@ class GraphStore:
         from repro_torch.store_io.atomic import StoreIOError
         store_dir = str(store_dir)
         t_open = time.perf_counter()
+        self = object.__new__(cls)
+        self._init_engine(backend, device, mesh, engine, engine_options)
+        unreadable: Optional[StoreIOError] = None
         try:
             payload = graphstore_io.read_store_manifest(store_dir)
             primary = graphstore_io.load_primary(store_dir, payload)
             base = int(payload.get("journal_base", 0))
             ops, top = graphstore_io.load_journal(store_dir, base)
         except StoreIOError as err:
+            unreadable = err
+        # the ranks of a mesh take a fallback together or not at all
+        if self.executor.agree(unreadable is not None)[0]:
             if graphs is None:
-                raise
+                raise unreadable or StoreIOError(
+                    f"persisted store at {store_dir!r} is unreadable on "
+                    f"another rank of the mesh")
             warnings.warn(
-                f"persisted store at {store_dir!r} is unreadable ({err}); "
+                f"persisted store at {store_dir!r} is unreadable "
+                f"({unreadable or 'on another rank of the mesh'}); "
                 f"re-ingesting the supplied graphs and re-saving",
                 RuntimeWarning, stacklevel=2)
             store = cls(graphs, device=device, mesh=mesh, engine=engine,
@@ -418,7 +445,6 @@ class GraphStore:
             store._counts["open_wall_s"] += time.perf_counter() - t_open
             return store
 
-        self = object.__new__(cls)
         self.digest = payload["digest"]
         self.filter_iters = int(payload["filter_iters"])
         self.filter_pool = int(payload["filter_pool"])
@@ -434,18 +460,22 @@ class GraphStore:
             self.graphs[gid] = g
         self._tombstones = {gid for gid, d
                             in zip(primary["ids"], primary["dead"]) if d}
-        self._init_engine(backend, device, mesh, engine, engine_options)
+        self._init_filter_cfg()
         self._init_counts()
         vocab = (tuple(int(v) for v in payload["vocab"][0]),
                  tuple(int(v) for v in payload["vocab"][1]))
+        corrupt: Optional[StoreIOError] = None
         try:
             self._restore_derived(
                 graphstore_io.load_derived(store_dir, payload,
                                            primary["ids"]),
                 primary["ids"], vocab)
         except StoreIOError as err:
+            corrupt = err
+        if self.executor.agree(corrupt is not None)[0]:
             warnings.warn(
-                f"derived segments at {store_dir!r} are corrupt ({err}); "
+                f"derived segments at {store_dir!r} are corrupt "
+                f"({corrupt or 'on another rank of the mesh'}); "
                 f"re-deriving from the persisted graphs", RuntimeWarning,
                 stacklevel=2)
             t0 = time.perf_counter()
@@ -560,9 +590,9 @@ class GraphStore:
         if self._store_dir is not None:
             from repro_torch.store_io import graphstore_io
             self._journal_seq += 1
-            graphstore_io.append_journal(
+            self.executor.from_root(lambda: graphstore_io.append_journal(
                 self._store_dir, self._journal_seq,
-                {"op": "add", "ids": ids}, new)
+                {"op": "add", "ids": ids}, new))
         self.graphs.extend(new)
         self._counts["adds"] += len(new)
         self._apply_add(ids)
@@ -592,9 +622,9 @@ class GraphStore:
         if self._store_dir is not None:
             from repro_torch.store_io import graphstore_io
             self._journal_seq += 1
-            graphstore_io.append_journal(
+            self.executor.from_root(lambda: graphstore_io.append_journal(
                 self._store_dir, self._journal_seq,
-                {"op": "remove", "ids": ids})
+                {"op": "remove", "ids": ids}))
         self._counts["removals"] += len(ids)
         self._apply_remove(ids)
         self._maybe_compact()

@@ -4,7 +4,8 @@ The counterpart of ``repro/serving/ged_service.py``: the same two
 services, arguments, store routing, deadline grouping and ``health()``
 keys, over the port's ``repro_torch.ged`` facade.  Both take ``device=``
 (default: the card; ``"cpu"`` runs on the CPU) and ``mesh=`` (a flat
-device sequence, :class:`repro_torch.ged.ShardedExecutor`).
+device sequence, a named ``DeviceMesh`` or a ``torch.distributed`` one,
+:class:`repro_torch.ged.ShardedExecutor`).
 
 * :class:`GedVerificationService` — request/response wrapper for
   (q, g, tau) -> "is delta(q, g) <= tau?", certified, over
@@ -163,8 +164,11 @@ class GedVerificationService:
     sequential rung loop.  A ``torch.distributed`` mesh goes to the
     engine as it is: every rank builds the service and sends it the same
     requests, each searches its shard, and each returns every answer
-    (:class:`~repro_torch.ged.GedEngine`'s ``mesh``); a corpus cannot be
-    registered on one yet.  ``device`` defaults to the card.  Example::
+    (:class:`~repro_torch.ged.GedEngine`'s ``mesh``).  A corpus registered
+    on such a service is a :class:`~repro_torch.ged.GraphStore` over the
+    same mesh, sharing the service's engine and executor, so every rank
+    registers it at the same point (see the store's SPMD contract).
+    ``device`` defaults to the card.  Example::
 
         svc = GedVerificationService(batch_size=128, use_kernel=True)
         outs = svc.verify([GedRequest(q, g, tau=4.0), ...])
@@ -332,7 +336,9 @@ class GedSimilarityService:
     (:class:`repro_torch.ged.CandidateIndex`): ``"auto"`` (default) builds
     a sound exact-mode index, a knob dict tunes it, ``None`` serves with
     the full-scan pipeline.  ``device`` (default: the card) and ``mesh``
-    place the store.  Example::
+    place the store; on a ``torch.distributed`` mesh every rank builds
+    the service and sends it the same requests (the store's SPMD
+    contract).  Example::
 
         svc = GedSimilarityService(db_graphs, index={"recall": 0.95})
         hits = svc.range_search(query, tau=4.0)

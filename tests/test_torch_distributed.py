@@ -12,9 +12,11 @@ for the module, with a timeout of its own, and runs every case in turn:
   ``faults.degradable`` patched to false in the ranks (every rank raises
   the same error, none hangs); ``"auto"`` under a deadline of 0, of a
   third of an unbounded run's wall and of none, with a 1 ms per-pair
-  host budget; ``GedVerificationService(mesh=...)``;
-  ``GraphStore(mesh=...)`` and ``register_corpus``, which raise
-  ``TypeError``.
+  host budget; ``GedVerificationService(mesh=...)``; and the
+  ``TypeError`` s that still stand for a store on such a mesh:
+  ``GraphStore(mesh=...)`` beside ``engine=``, and engine-level options
+  to ``register_corpus`` (the store itself is
+  ``tests/test_torch_distributed_store.py``'s).
 
 Each rank pickles what it saw.  The tests hold the ranks to each other
 and, field by field as ``tests/test_torch_sharded.py`` compares them
@@ -188,8 +190,9 @@ RANK = textwrap.dedent("""
                                             tau=tau) for q, g in pairs])
     graphs = [q for q, _ in pairs]
     for key, make in (
-            ("store", lambda: ged.GraphStore(graphs, mesh=mesh)),
-            ("corpus", lambda: svc.register_corpus(graphs))):
+            ("store", lambda: ged.GraphStore(graphs, mesh=mesh,
+                                             engine=svc.engine)),
+            ("corpus", lambda: svc.register_corpus(graphs, batch_size=4))):
         try:
             make()
             rec[key] = None
@@ -365,9 +368,14 @@ def test_the_verification_service_answers_like_one_device(ranks):
 
 
 def test_a_store_over_a_distributed_mesh_raises_type_error(ranks):
+    """A mesh beside ``engine=``, and engine options where the store
+    shares the service's engine, raise on every rank, before any
+    collective."""
     for rec in ranks["recs"]:
-        for key in ("store", "corpus"):
-            assert "torch.distributed mesh is not ported" in rec[key]
+        assert "engine= is exclusive" in rec["store"]
+        assert "['mesh']" in rec["store"]
+        assert "engine= is exclusive" in rec["corpus"]
+        assert "['batch_size']" in rec["corpus"]
 
 
 # ------------------------------------------------- without a process group
